@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA card (marker `cuda`) and skips without one. The
+file imports neither JAX nor the JAX package, and needs nothing of
+`tests/conftest.py`, so it runs on a GPU machine without JAX:
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda -q
+
+K1's bars are those of `tests/test_torch_streaming_matcher.py`: indices
+agree on at least 99.9% of rows (the two sum the bf16 products in another
+order), distances to rtol = atol = 1e-5 where the indices agree; exact
+duplicates must resolve by the tie rules exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pytheiasfm_tpu_torch.matching import brute_force
+from pytheiasfm_tpu_torch.matching import streaming_matcher as sm
+
+pytestmark = pytest.mark.cuda
+
+BIG = 3.4e38
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("the port's CUDA kernels run only on a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(42)
+
+
+def _descs(rng, P, N, D, noise=0.05):
+    d1 = rng.normal(size=(P, N, D)).astype(np.float32)
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    d2 = d1 + rng.normal(size=d1.shape).astype(np.float32) * noise
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    perm = np.stack([rng.permutation(N) for _ in range(P)])
+    return d1, np.take_along_axis(d2, perm[:, :, None], axis=1)
+
+
+def _masks(P, N):
+    m1 = np.ones((P, N), bool)
+    m2 = np.ones((P, N), bool)
+    m1[:, -7:] = False
+    m2[:, -3:] = False
+    m1[0, 5] = False
+    return m1, m2
+
+
+def _kernel_inputs(d1, d2, m1, m2, device):
+    a1 = np.sum(d1 * d1, -1) + np.where(m1, 0.0, BIG)
+    a2 = np.sum(d2 * d2, -1) + np.where(m2, 0.0, BIG)
+    return [
+        torch.tensor(d1, device=device).bfloat16(),
+        torch.tensor(d2, device=device).bfloat16(),
+        torch.tensor(a1, dtype=torch.float32, device=device),
+        torch.tensor(a2, dtype=torch.float32, device=device),
+    ]
+
+
+def _assert_top2_close(got, want, min_agree=0.999):
+    got = [g.cpu().numpy() for g in got]
+    want = [w.cpu().numpy() for w in want]
+    for b1, b2, arg in ((0, 1, 2), (3, 4, 5)):
+        agree = got[arg] == want[arg]
+        assert agree.mean() >= min_agree, agree.mean()
+        for k in (b1, b2):
+            np.testing.assert_allclose(got[k][agree], want[k][agree], rtol=1e-5, atol=1e-5)
+    return got
+
+
+def _launch(args):
+    before = sm.streaming_top2.launches
+    out = sm.streaming_top2(*args)
+    torch.cuda.synchronize()
+    assert sm.streaming_top2.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("P,N,D", [(2, 64, 64), (2, 200, 128), (4, 1024, 128), (1, 4096, 128)])
+def test_streaming_top2_matches_plain_version(cuda, rng, P, N, D):
+    args = _kernel_inputs(*_descs(rng, P, N, D), *_masks(P, N), cuda)
+    got = _assert_top2_close(_launch(args), sm.streaming_top2_reference(*args))
+    # Masked rows come out as the TPU kernel's accumulator: (BIG, BIG, 0).
+    assert got[0][0, 5] == np.float32(BIG) and got[2][0, 5] == 0
+
+
+def test_streaming_top2_tie_rules(cuda, rng):
+    """Exact duplicates within one 64-row tile and across tiles: the lowest
+    index wins and the second best equals the best."""
+    P, N, D = 1, 256, 128
+    d1, d2 = _descs(rng, P, N, D)
+    d2[0, 140] = d2[0, 7]
+    d2[0, 9] = d2[0, 8]
+    d1[0, 200] = d1[0, 3]
+    ones = np.ones((P, N), bool)
+    args = _kernel_inputs(d1, d2, ones, ones, cuda)
+    got = _assert_top2_close(_launch(args), sm.streaming_top2_reference(*args), min_agree=1.0)
+    for lo, hi in ((7, 140), (8, 9)):
+        rows = np.flatnonzero(got[2][0] == lo)
+        assert len(rows) and not np.any(got[2][0] == hi)
+        np.testing.assert_array_equal(got[1][0, rows], got[0][0, rows])
+    rows = np.flatnonzero(got[5][0] == 3)
+    assert len(rows) and not np.any(got[5][0] == 200)
+    np.testing.assert_array_equal(got[4][0, rows], got[3][0, rows])
+
+
+def test_streaming_top2_rejects_bad_inputs(cuda, rng):
+    args = _kernel_inputs(*_descs(rng, 1, 64, 64), *_masks(1, 64), cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        sm.streaming_top2(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="multiple"):
+        sm.streaming_top2(args[0][..., :48].contiguous(), args[1][..., :48].contiguous(),
+                          *args[2:])
+
+
+@pytest.mark.parametrize("N,D", [(64, 128), (256, 32)])
+def test_matcher_dispatch_launches_the_kernel(cuda, rng, N, D):
+    """`match_descriptors_batch_auto` on CUDA tensors runs K1 (D padded to
+    the kernel's chunk) and agrees with the plain matcher run on the CPU."""
+    d1, d2 = _descs(rng, 2, N, D)
+    m1, m2 = _masks(2, N)
+    cpu = [torch.tensor(x) for x in (d1, d2, m1, m2)]
+    before = sm.streaming_top2.launches
+    idx, _ = brute_force.match_descriptors_batch_auto(*[x.to(cuda) for x in cpu], 0.8)
+    assert sm.streaming_top2.launches == before + 1
+    want, _ = brute_force.match_descriptors_batch_auto(*cpu, 0.8)
+    agree = (idx.cpu() == want).float().mean().item()
+    assert agree >= 0.999, agree
+    assert (want >= 0).sum() > 0.5 * m1.sum()
