@@ -30,6 +30,7 @@ __all__ = [
     "image_pair_match",
     "keypoints_and_descriptors",
     "two_view_info",
+    "two_view_match_geometric_verification_options",
 ]
 
 
@@ -59,17 +60,24 @@ def camera_intrinsics_prior(prior) -> CameraIntrinsicsPrior:
     )
 
 
+def two_view_match_geometric_verification_options(
+    gv,
+) -> TwoViewMatchGeometricVerificationOptions:
+    return _fields(
+        gv,
+        TwoViewMatchGeometricVerificationOptions,
+        estimate_twoview_info_options=_fields(
+            gv.estimate_twoview_info_options, EstimateTwoViewInfoOptions
+        ),
+    )
+
+
 def feature_matcher_options(options) -> FeatureMatcherOptions:
-    gv = options.geometric_verification_options
     return _fields(
         options,
         FeatureMatcherOptions,
-        geometric_verification_options=_fields(
-            gv,
-            TwoViewMatchGeometricVerificationOptions,
-            estimate_twoview_info_options=_fields(
-                gv.estimate_twoview_info_options, EstimateTwoViewInfoOptions
-            ),
+        geometric_verification_options=two_view_match_geometric_verification_options(
+            options.geometric_verification_options
         ),
     )
 

@@ -1,11 +1,12 @@
 """Essential-matrix utilities and the Sampson error.
 
 Counterpart of the JAX package's `ops/epipolar.py`
-(`theia/sfm/pose/essential_matrix_utils.{h,cc}`, `sfm/pose/util.cc`). The
-slice needs the calibrated path only: the closed-form essential-matrix
+(`theia/sfm/pose/essential_matrix_utils.{h,cc}`, `sfm/pose/util.cc`). Two-view
+verification needs the calibrated path: the closed-form essential-matrix
 decomposition (ported as written, not replaced by an SVD), the cheirality
-pose choice and the squared Sampson distance. The 7/8-point and focal
-recovery functions port with the uncalibrated path.
+pose choice, the squared Sampson distance, and for the homography count the
+Hartley normalization and the four-point homography. The 7/8-point and
+focal recovery functions port with the uncalibrated path.
 
 Convention: ``x2^T * F * x1 = 0`` — `points1` live in image 1, `points2` in
 image 2.
@@ -18,6 +19,8 @@ import torch
 from . import triangulation as tri
 
 __all__ = [
+    "normalize_image_points",
+    "four_point_homography",
     "decompose_essential_matrix",
     "get_best_pose_from_essential_matrix",
     "squared_sampson_distance",
@@ -26,6 +29,66 @@ __all__ = [
 
 def _homog(p):
     return torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
+
+
+def normalize_image_points(points: torch.Tensor, mask: torch.Tensor | None = None):
+    """Hartley isotropic normalization: zero mean, mean distance sqrt(2).
+
+    points [.., N, 2] -> (normalized points, T [..,3,3]) with x' = T x.
+    Parity: `NormalizeImagePoints` (`sfm/pose/util.cc`).
+    """
+    if mask is None:
+        mean = torch.mean(points, dim=-2, keepdim=True)
+        centered = points - mean
+        rms = torch.mean(torch.linalg.norm(centered, dim=-1), dim=-1)
+    else:
+        w = mask.to(points.dtype)[..., None]
+        count = torch.clamp(torch.sum(w, dim=-2, keepdim=True), min=1.0)
+        mean = torch.sum(points * w, dim=-2, keepdim=True) / count
+        centered = (points - mean) * w
+        rms = torch.sum(torch.linalg.norm(centered, dim=-1), dim=-1) / count[..., 0, 0]
+    scale = (2.0**0.5) / torch.clamp(rms, min=1e-12)
+    normalized = centered * scale[..., None, None]
+    zeros = torch.zeros_like(scale)
+    ones = torch.ones_like(scale)
+    T = torch.stack(
+        [
+            torch.stack([scale, zeros, -scale * mean[..., 0, 0]], dim=-1),
+            torch.stack([zeros, scale, -scale * mean[..., 0, 1]], dim=-1),
+            torch.stack([zeros, zeros, ones], dim=-1),
+        ],
+        dim=-2,
+    )
+    return normalized, T
+
+
+def four_point_homography(points1, points2, mask=None):
+    """Normalized DLT homography from >= 4 correspondences.
+
+    points1/points2 [.., N, 2] -> (H [.., 3, 3], success) with x2 ~ H x1,
+    scaled to h33 = 1. Parity: `theia::FourPointHomography`
+    (`four_point_homography.h:48`).
+    """
+    n1, T1 = normalize_image_points(points1, mask)
+    n2, T2 = normalize_image_points(points2, mask)
+    x1, y1 = n1[..., 0], n1[..., 1]
+    x2, y2 = n2[..., 0], n2[..., 1]
+    zeros = torch.zeros_like(x1)
+    ones = torch.ones_like(x1)
+    # Two rows per correspondence (standard DLT).
+    row1 = torch.stack([zeros, zeros, zeros, -x1, -y1, -ones, y2 * x1, y2 * y1, y2], dim=-1)
+    row2 = torch.stack([x1, y1, ones, zeros, zeros, zeros, -x2 * x1, -x2 * y1, -x2], dim=-1)
+    A = torch.cat([row1, row2], dim=-2)
+    if mask is not None:
+        A = A * torch.cat([mask, mask], dim=-1)[..., None].to(A.dtype)
+    AtA = A.mT @ A
+    _, vecs = torch.linalg.eigh(AtA)
+    H = vecs[..., :, 0].reshape(AtA.shape[:-2] + (3, 3))
+    H = torch.linalg.inv(T2) @ H @ T1
+    scale = H[..., 2, 2]
+    ok = torch.abs(scale) > 1e-12
+    H = H / torch.where(ok, scale, torch.ones_like(scale))[..., None, None]
+    return H, ok
 
 
 def decompose_essential_matrix(E: torch.Tensor):

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's `sfm/two_view.py`
 (`theia/sfm/estimate_twoview_info.{h,cc}`, `estimate_twoview_info.cc:259`).
 Calibrated pairs verify as one batched five-point RANSAC program over a
-block of view pairs. The uncalibrated path (fundamental matrix + focal
-recovery) ports in a later slice.
+block of view pairs; `estimate_two_view_info` is the single-pair API over
+the same batch. The uncalibrated path (fundamental matrix + focal recovery)
+raises: its JAX reference fails (ROADMAP.md, "Faults found").
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from .visibility_pyramid import visibility_score
 
 __all__ = [
     "EstimateTwoViewInfoOptions",
+    "estimate_two_view_info",
     "estimate_two_view_info_batch",
     "normalize_features_by_priors",
     "compute_resolution_scaled_threshold",
@@ -192,3 +194,32 @@ def estimate_two_view_info_batch(
         )
         results.append((info, idx))
     return results
+
+
+def estimate_two_view_info(
+    generator: torch.Generator,
+    options: EstimateTwoViewInfoOptions,
+    prior1: CameraIntrinsicsPrior,
+    prior2: CameraIntrinsicsPrior,
+    points1,
+    points2,
+    min_num_inlier_matches: int = 5,
+    device=None,
+):
+    """Single-pair API. Parity: `theia::EstimateTwoViewInfo`
+    (`estimate_twoview_info.cc:259`): pixel correspondences [N, 2] ->
+    (TwoViewInfo | None, inlier_indices). Runs `estimate_two_view_info_batch`
+    on a batch of one pair (f32, as the batch does); pairs without a focal
+    prior on both sides raise `NotImplementedError`."""
+    if prior1.focal_length is None or prior2.focal_length is None:
+        raise NotImplementedError(
+            "estimate_two_view_info: the uncalibrated (fundamental matrix) path "
+            "is not ported yet; its JAX reference fails (ROADMAP.md, 'Faults found')"
+        )
+    points1 = np.asarray(points1, np.float64)[None]
+    points2 = np.asarray(points2, np.float64)[None]
+    return estimate_two_view_info_batch(
+        generator, options, [prior1], [prior2], points1, points2,
+        np.ones(points1.shape[:2], bool),
+        min_num_inlier_matches=min_num_inlier_matches, device=device,
+    )[0]

@@ -13,6 +13,16 @@ verification on the matches:
     (scoring = RANSAC - samples - solver);
   - `torch.profiler` over that chunk's RANSAC program: device time by
     operator, written to DIR/profile_verification.txt and printed.
+
+Then stage 2 (`bundle_adjustment`, the default) through
+`FeatureMatcher.match_images` at its default options, with the matcher's own
+`_refine_survivors` wrapped in `torch.profiler`:
+
+  - the process's first stage 2, on one pair (views 0 and 1), then a second
+    one: what the first costs beyond the second is paid once per process;
+  - the whole scene three times, the refinement seconds from `timings`; the
+    last run's device time by operator goes to DIR/profile_refinement.txt
+    and is printed.
 """
 
 from __future__ import annotations
@@ -32,24 +42,12 @@ from ..sfm.reconstruction import CameraIntrinsicsPrior
 from ..sfm.two_view_match_geometric_verification import (
     TwoViewMatchGeometricVerificationOptions,
 )
+from ..utils.timing import cuda_time_ms
 from . import ring_scene as rs
 
 
 def _log(*args):
     print(*args, flush=True)
-
-
-def _events_ms(fn, iters=3):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _candidates(device):
@@ -65,7 +63,7 @@ def _candidates(device):
     prior = CameraIntrinsicsPrior(
         image_width=rs.WIDTH, image_height=rs.HEIGHT, focal_length=rs.FOCAL
     )
-    views, _ = rs.ring_scene()
+    views, _, _ = rs.ring_scene()
     for v, (kps, desc) in enumerate(views):
         matcher.add_image(rs.view_name(v), kps, desc, prior)
     matches = matcher.match_images()
@@ -74,7 +72,7 @@ def _candidates(device):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--out", default="profiles", help="directory of the profile table")
+    parser.add_argument("--out", default="profiles", help="directory of the profile tables")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_verification: needs a CUDA card")
@@ -84,6 +82,7 @@ def main() -> int:
     )
     _log(f"card: {smi.stdout.strip().splitlines()[0]}, torch {torch.__version__}")
     profile_verification(torch.device("cuda"), Path(args.out))
+    profile_refinement(torch.device("cuda"), Path(args.out))
     return 0
 
 
@@ -143,9 +142,9 @@ def profile_verification(dev: torch.device, out: Path):
             error_thresh=thresh,
         )
 
-    draw_ms = _events_ms(draw)
-    solve_ms = _events_ms(lambda: est.solve(subset))
-    ransac_ms = _events_ms(ransac)
+    draw_ms = cuda_time_ms(draw)
+    solve_ms = cuda_time_ms(lambda: est.solve(subset))
+    ransac_ms = cuda_time_ms(ransac)
     _log(f"[chunk] {C} pairs x {B} hypotheses x K={K}: RANSAC {ransac_ms:.1f} ms = "
          f"samples {draw_ms:.1f} + five-point and pose choice {solve_ms:.1f} + scoring "
          f"{ransac_ms - draw_ms - solve_ms:.1f} ms")
@@ -159,6 +158,55 @@ def profile_verification(dev: torch.device, out: Path):
     out.mkdir(parents=True, exist_ok=True)
     (out / "profile_verification.txt").write_text(table)
     _log(table)
+
+
+def _profile_refinement_of(matcher, path: Path):
+    """Wrap `matcher._refine_survivors` in `torch.profiler`; its table of
+    operators by device time goes to `path`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    refine = matcher._refine_survivors
+
+    def profiled(*args, **kwargs):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = refine(*args, **kwargs)
+            torch.cuda.synchronize()
+        path.write_text(prof.key_averages().table(sort_by="device_time_total", row_limit=30))
+        return out
+
+    matcher._refine_survivors = profiled
+
+
+def profile_refinement(dev: torch.device, out: Path):
+    views, _, _ = rs.ring_scene()
+    prior = CameraIntrinsicsPrior(
+        image_width=rs.WIDTH, image_height=rs.HEIGHT, focal_length=rs.FOCAL
+    )
+    out.mkdir(parents=True, exist_ok=True)
+
+    def run(view_ids, label, profiled: Path | None = None):
+        matcher = FeatureMatcher(FeatureMatcherOptions(), device=dev)
+        for v in view_ids:
+            matcher.add_image(rs.view_name(v), *views[v], prior)
+        if profiled:
+            _profile_refinement_of(matcher, profiled)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        matches = matcher.match_images()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _log(f"[stage 2] {label}: {len(matches)} verified pairs, match_images {wall:.3f} s, "
+             f"refinement {matcher.timings['refinement']:.3f} s"
+             f"{' (under the profiler)' if profiled else ''}")
+
+    run([0, 1], "the process's first stage 2, 1 pair")
+    run([0, 1], "second stage 2, 1 pair")
+    everything = range(rs.NUM_VIEWS)
+    for i in range(2):
+        run(everything, f"{rs.NUM_VIEWS} views, run {i}")
+    table = out / "profile_refinement.txt"
+    run(everything, f"{rs.NUM_VIEWS} views, run 2", table)
+    _log(table.read_text())
 
 
 if __name__ == "__main__":

@@ -14,7 +14,13 @@ import numpy as np
 
 from ..ops.rotation_np import angle_axis_to_rotation_matrix_np
 
-__all__ = ["ring_scene", "rotation_error_deg", "shares_tracks", "view_name"]
+__all__ = [
+    "ring_scene",
+    "rotation_error_deg",
+    "shares_tracks",
+    "track_ids_of",
+    "view_name",
+]
 
 NUM_VIEWS = 32
 NUM_TRACKS = 12000
@@ -39,9 +45,10 @@ def shares_tracks(a: int, b: int, num_views: int = NUM_VIEWS) -> bool:
 def ring_scene(
     seed: int = 0, num_tracks: int = NUM_TRACKS, num_features: int = NUM_FEATURES
 ):
-    """Returns (views, rotations): views a list of (keypoints [F, 2],
-    descriptors [F, 128] f32), rotations the ground-truth world-to-camera
-    rotations [V, 3, 3]."""
+    """Returns (views, rotations, track_ids): views a list of (keypoints
+    [F, 2], descriptors [F, 128] f32), rotations the ground-truth
+    world-to-camera rotations [V, 3, 3], track_ids a list of [F] int arrays,
+    each feature's track (-1 for distractors)."""
     rng = np.random.default_rng(seed)
     V = NUM_VIEWS
     angles = 2 * np.pi * np.arange(V) / V
@@ -60,7 +67,7 @@ def ring_scene(
     track_desc /= np.linalg.norm(track_desc, axis=1, keepdims=True)
     anchor = rng.integers(V, size=num_tracks)
     half = VIEWS_PER_TRACK // 2
-    views = []
+    views, track_ids = [], []
     for v in range(V):
         ring_dist = np.minimum((anchor - v) % V, (v - anchor) % V)
         tracks = np.flatnonzero(ring_dist <= half)
@@ -75,10 +82,23 @@ def ring_scene(
         desc /= np.linalg.norm(desc, axis=1, keepdims=True)
         order = rng.permutation(num_features)
         views.append((kps[order], desc[order]))
-    return views, rots
+        track_ids.append(np.concatenate([tracks, np.full(n_extra, -1)])[order])
+    return views, rots, track_ids
 
 
 def rotation_error_deg(angle_axis, R_true) -> float:
     """Angle between an angle-axis rotation and a rotation matrix, degrees."""
     R = angle_axis_to_rotation_matrix_np(angle_axis)
     return float(np.degrees(np.arccos(np.clip((np.trace(R @ R_true.T) - 1) / 2, -1, 1))))
+
+
+def track_ids_of(keypoints, view_keypoints, view_track_ids):
+    """The track ids of `keypoints` [M, 2], each an exact copy of a row of
+    the view's `view_keypoints` [F, 2] (as a matcher's correspondences are);
+    -2 for a point that is no feature of the view."""
+    key = np.ascontiguousarray(view_keypoints, np.float64).view(np.complex128)[:, 0]
+    order = np.argsort(key)
+    q = np.ascontiguousarray(keypoints, np.float64).view(np.complex128)[:, 0]
+    pos = np.clip(np.searchsorted(key[order], q), 0, len(key) - 1)
+    idx = order[pos]
+    return np.where(key[idx] == q, np.asarray(view_track_ids)[idx], -2)

@@ -9,7 +9,10 @@ file imports neither JAX nor the JAX package, and needs nothing of
 K1's bars are those of `tests/test_torch_streaming_matcher.py`: indices
 agree on at least 99.9% of rows (the two sum the bf16 products in another
 order), distances to rtol = atol = 1e-5 where the indices agree; exact
-duplicates must resolve by the tie rules exactly.
+duplicates must resolve by the tie rules exactly. K2's bar is that of
+`tests/test_torch_exp_matcher_roofline.py`: max |delta| <= 1e-4 * (1 + |ref|).
+The triangulation's chunked `eigh` is held here too, above the batch size
+that cuSOLVER takes in one call.
 """
 
 import numpy as np
@@ -18,6 +21,8 @@ import torch
 
 from pytheiasfm_tpu_torch.matching import brute_force
 from pytheiasfm_tpu_torch.matching import streaming_matcher as sm
+from pytheiasfm_tpu_torch.ops import triangulation
+from pytheiasfm_tpu_torch.tools import exp_matcher_roofline as k2
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +140,43 @@ def test_matcher_dispatch_launches_the_kernel(cuda, rng, N, D):
     agree = (idx.cpu() == want).float().mean().item()
     assert agree >= 0.999, agree
     assert (want >= 0).sum() > 0.5 * m1.sum()
+
+
+@pytest.mark.parametrize("P,N,D", [(1, 64, 64), (2, 128, 128), (3, 512, 256), (2, 1024, 512)])
+def test_matmul_rowmin_matches_plain_version(cuda, P, N, D):
+    d1, d2t = k2.inputs(D, seed=N + D, device=cuda, pairs=P, n=N)
+    before = k2.matmul_rowmin.launches
+    got = k2.matmul_rowmin(d1, d2t)
+    torch.cuda.synchronize()
+    assert k2.matmul_rowmin.launches == before + 1
+    want = k2.matmul_rowmin_reference(d1, d2t)
+    assert got.dtype == torch.float32 and got.shape == (P, N)
+    assert torch.all((got - want).abs() <= 1e-4 * (1 + want.abs()))
+
+
+def test_matmul_rowmin_rejects_bad_shapes(cuda):
+    d1, d2t = k2.inputs(128, device=cuda, pairs=1, n=128)
+    with pytest.raises(ValueError, match="N=96"):
+        k2.matmul_rowmin(d1[:, :96].contiguous(), d2t[..., :96].contiguous())
+    with pytest.raises(ValueError, match="D=96"):
+        k2.matmul_rowmin(d1[..., :96].contiguous(), d2t[:, :96].contiguous())
+    with pytest.raises(ValueError, match="bfloat16"):
+        k2.matmul_rowmin(d1.float(), d2t)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.matmul_rowmin(d1, d2t.mT.contiguous().mT)
+
+
+def test_eigh_in_chunks_above_the_cusolver_batch(cuda):
+    """`_eigh` over [2, _EIGH_BATCH + 8, 4, 4] symmetric matrices (cuSOLVER
+    refuses such a batch in one call): eigenvalues against f64 on the CPU,
+    and V diag(w) V^T against the input, to 1e-4 * (1 + max |a|)."""
+    gen = torch.Generator().manual_seed(3)
+    b = torch.randn(2, triangulation._EIGH_BATCH + 8, 4, 4, generator=gen)
+    a = b @ b.mT
+    vals, vecs = triangulation._eigh(a.to(cuda))
+    assert vals.shape == a.shape[:-1] and vecs.shape == a.shape
+    tol = 1e-4 * (1 + a.abs().amax())
+    want = torch.linalg.eigvalsh(a.double()).float()
+    assert torch.all((vals.cpu() - want).abs() <= tol)
+    back = (vecs * vals[..., None, :]) @ vecs.mT
+    assert torch.all((back.cpu() - a).abs() <= tol)
