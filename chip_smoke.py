@@ -5,11 +5,13 @@
 
 Phases, each printed (flushed) as it ends:
   1. build every kernel of the port from `pytheiasfm_tpu_torch/csrc/`
-     (one nvcc per source, all at once) and print what ptxas reports;
+     (one nvcc per source, all at once), print what ptxas reports, and
+     count the `wgmma` instructions (HGMMA) in K2's machine code;
   2. hold each kernel against its plain PyTorch version on the card and time
      both, with the one PyTorch call that computes the same function where
      there is one: K1 (`streaming_top2`) at the bench shape and at N=64; K2
-     (`matmul_rowmin`) at P=8, N=4096 for D in {128, 256, 512} and at N=64;
+     (`matmul_rowmin`) at P=8, N=4096 for D in {128, 256, 512} and at N=64,
+     with the bytes a launch reads through L2 by the kernel's tile sizes;
      then drive K2's own path, the roofline sweep
      (`tools.exp_matcher_roofline.main`), with its launch count set to 0
      just before and read just after;
@@ -35,6 +37,7 @@ it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -84,6 +87,10 @@ GUIDED_CHUNKS_CHECKED = 2  # rematch chunks (4 pairs each) held against the CPU
 MIN_AGREEMENT = 0.999
 MAX_ABS_ERR = 1e-4  # K1: distances are O(1)
 K2_REL_TOL = 1e-4  # K2: max |delta| <= 1e-4 * (1 + |ref|)
+# K2 at P=8, N=4096 by depth, in ms: the mma.sync (WMMA) kernel that the
+# present one replaced, on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md,
+# section 6). Printed beside this run's times; no bar hangs on it.
+K2_PREV_MS = {128: 0.3393, 256: 0.6158, 512: 1.2351}
 
 
 def log(*args):
@@ -190,11 +197,16 @@ def phase_kernels(dev):
         plain_ms = cuda_time_ms(lambda: k2.matmul_rowmin_reference(d1, d2t), iters=5)
         library_ms = cuda_time_ms(lambda: torch.bmm(d1, d2t).amin(-1), iters=30, warmup=3)
         bound_ms, bound_by, terms = rowmin_bound_ms(k2.P, k2.N, D)
+        l2_bytes = k2.l2_bytes_per_launch(k2.P, k2.N, D)
         log(f"[k2] P=8 N=4096 D={D}: kernel {ms:.4f} ms "
-            f"({2.0 * k2.P * k2.N**2 * D / ms / 1e9:.1f} TF/s), plain {plain_ms:.4f} ms, "
-            f"torch.bmm + amin {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({terms})")
-        depths.append(dict(D=D, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, bound_by=bound_by))
+            f"({2.0 * k2.P * k2.N**2 * D / ms / 1e9:.1f} TF/s; the kernel it replaced "
+            f"{K2_PREV_MS[D]:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"torch.bmm + amin {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({terms}); "
+            f"{l2_bytes / 1e9:.3f} GB through L2 a launch "
+            f"({l2_bytes / ms / 1e9:.2f} TB/s)")
+        depths.append(dict(D=D, ms=ms, prev_ms=K2_PREV_MS[D], plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           l2_bytes=l2_bytes))
         del d1, d2t
 
     k2.matmul_rowmin.launches = 0
@@ -425,6 +437,11 @@ def main() -> int:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    spills = re.findall(r"(\d+) bytes spill", cuda_build.build_log(k2.KERNEL))
+    hgmma = cuda_build.sass(k2.KERNEL).count("HGMMA")
+    log(f"[build] {k2.KERNEL}: {hgmma} HGMMA (wgmma) instructions in the built library")
+    if hgmma < 1 or not spills or any(int(n) for n in spills):
+        raise RuntimeError(f"{k2.KERNEL}: no wgmma in the built library, or ptxas spilled")
 
     # 2. Kernels against their plain versions; K2's own path.
     k1, k1_checks, rowmin = phase_kernels(dev)
@@ -465,6 +482,7 @@ def main() -> int:
             bound_by=d128["bound_by"],
             library_ms=d128["library_ms"],
             shape=[k2.P, k2.N, 128],
+            l2_bytes=d128["l2_bytes"],
             by_depth=rowmin["depths"],
         ),
     ]

@@ -5,11 +5,13 @@
 Counterpart of the JAX package's `tools/exp_matcher_roofline.py`:
 `matmul_rowmin` replaces its Pallas kernel (`make(TI, TJ, D, semantics).run`,
 pallas_call at `:67`). The kernel is `csrc/matmul_rowmin.cu`, CUDA C++ for
-Hopper (`sm_90a`): K1's pass-1 block structure with the selection cut to a
-row-min, so that its time is the time of K1's product alone.
-`matmul_rowmin_reference` is its plain PyTorch version; `matmul_rowmin` runs
-it for tensors on the CPU only, and on a CUDA tensor launches the kernel or
-raises.
+Hopper (`sm_90a`) on the product core `csrc/mma_core.cuh`: a block keeps
+128 rows of d1 in shared memory, d2t streams by TMA through a ring of
+stages, `wgmma` forms the product and the row-min is taken from the
+accumulator registers. Its rate is what the matcher's product can reach on
+the card. `matmul_rowmin_reference` is its plain PyTorch version;
+`matmul_rowmin` runs it for tensors on the CPU only, and on a CUDA tensor
+launches the kernel or raises.
 
 `main` sweeps D in {128, 256, 512} at P = 8 pairs of N = 4096 descriptors,
 times the kernel by CUDA events after warm-up and prints TF/s and
@@ -29,7 +31,7 @@ import torch
 from ..utils.cuda_build import load_library
 from ..utils.timing import cuda_time_ms
 
-__all__ = ["matmul_rowmin", "matmul_rowmin_reference", "sweep", "main"]
+__all__ = ["matmul_rowmin", "matmul_rowmin_reference", "l2_bytes_per_launch", "sweep", "main"]
 
 KERNEL = "matmul_rowmin"
 BIG = 3.4e38  # the TPU kernel's initial row minimum (`exp_matcher_roofline.py:51`)
@@ -54,9 +56,19 @@ def _kernel_lib():
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     )
     lib.matmul_rowmin_launch.restype = ctypes.c_int
-    lib.matmul_rowmin_row_tile.restype = ctypes.c_int
-    lib.matmul_rowmin_k_chunk.restype = ctypes.c_int
+    for size in ("row_tile", "k_chunk", "max_depth", "block_rows", "col_tile"):
+        getattr(lib, f"matmul_rowmin_{size}").restype = ctypes.c_int
     return lib
+
+
+def l2_bytes_per_launch(pairs: int, n: int, D: int) -> int:
+    """Bytes one launch of the kernel reads through L2, from its tile sizes:
+    every block of `block_rows` rows reads its d1 slab once and all of its
+    pair's d2t, in steps of `col_tile` columns."""
+    lib = _kernel_lib()
+    rows, cols = lib.matmul_rowmin_block_rows(), lib.matmul_rowmin_col_tile()
+    blocks = pairs * -(-n // rows)
+    return blocks * 2 * (rows * D + D * cols * -(-n // cols))
 
 
 def matmul_rowmin(d1, d2t):
@@ -64,7 +76,8 @@ def matmul_rowmin(d1, d2t):
 
     d1 [P, N, D], d2t [P, D, N]; on CUDA both bf16, contiguous, N a
     multiple of the kernel's row tile and D of its contraction chunk (64
-    each). Returns [P, N] f32.
+    each), D at most what the kernel keeps resident in shared memory (640).
+    Returns [P, N] f32.
 
     CPU tensors go to `matmul_rowmin_reference`; CUDA tensors launch the
     kernel (and count the launch in `matmul_rowmin.launches`).
@@ -84,8 +97,11 @@ def matmul_rowmin(d1, d2t):
     ti, kc = lib.matmul_rowmin_row_tile(), lib.matmul_rowmin_k_chunk()
     if Pp == 0 or Np == 0 or Np % ti:
         raise ValueError(f"matmul_rowmin: N={Np} must be a positive multiple of {ti}")
-    if D == 0 or D % kc:
-        raise ValueError(f"matmul_rowmin: D={D} must be a positive multiple of {kc}")
+    if D == 0 or D % kc or D > lib.matmul_rowmin_max_depth():
+        raise ValueError(
+            f"matmul_rowmin: D={D} must be a positive multiple of {kc}, at most "
+            f"{lib.matmul_rowmin_max_depth()} (the d1 rows of a block stay in shared memory)"
+        )
     out = torch.empty((Pp, Np), dtype=torch.float32, device=d1.device)
     with torch.cuda.device(d1.device):
         stream = torch.cuda.current_stream(d1.device).cuda_stream

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) into `_build/lib<name>-<hash>.so`, then loaded with
 `ctypes`. The build happens at first use, never at import; the hash covers
-the source and the flags, so an edited source is rebuilt. Several sources
+the source, the headers under `csrc/` (`*.cuh`, which any source may include)
+and the flags, so an edited source or header is rebuilt. Several sources
 build in parallel, one `nvcc` each (`build_libraries`).
 """
 
@@ -18,7 +19,7 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["build_libraries", "load_library", "build_log"]
+__all__ = ["build_libraries", "load_library", "build_log", "sass"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -32,22 +33,25 @@ _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _tool(tool: str) -> str:
+    """A program of the CUDA toolkit (`nvcc`, `cuobjdump`)."""
+    found = shutil.which(tool)
     if found:
         return found
-    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / tool
     if default.exists():
         return str(default)
     raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin); the CUDA kernels of "
+        f"{tool} not found (PATH, $CUDA_HOME/bin); the CUDA kernels of "
         "pytheiasfm_tpu_torch are compiled at first use on the GPU machine"
     )
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -56,6 +60,16 @@ def build_log(name: str) -> str:
     spills) of the current build of `name`, or "" if it is not built."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass(name: str) -> str:
+    """The machine code of the current build of `name`, as `cuobjdump -sass`
+    prints it. Raises if the library is not built or the tool fails."""
+    done = subprocess.run(
+        [_tool("cuobjdump"), "-sass", str(_target(name))],
+        capture_output=True, text=True, check=True, timeout=120,
+    )
+    return done.stdout
 
 
 def build_libraries(names) -> dict[str, Path]:
@@ -68,7 +82,7 @@ def build_libraries(names) -> dict[str, Path]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [_tool("nvcc"), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )

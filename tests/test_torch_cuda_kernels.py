@@ -142,16 +142,68 @@ def test_matcher_dispatch_launches_the_kernel(cuda, rng, N, D):
     assert (want >= 0).sum() > 0.5 * m1.sum()
 
 
-@pytest.mark.parametrize("P,N,D", [(1, 64, 64), (2, 128, 128), (3, 512, 256), (2, 1024, 512)])
-def test_matmul_rowmin_matches_plain_version(cuda, P, N, D):
-    d1, d2t = k2.inputs(D, seed=N + D, device=cuda, pairs=P, n=N)
+def _launch_rowmin(d1, d2t):
     before = k2.matmul_rowmin.launches
     got = k2.matmul_rowmin(d1, d2t)
     torch.cuda.synchronize()
     assert k2.matmul_rowmin.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == d1.shape[:2]
+    return got
+
+
+@pytest.mark.parametrize(
+    "P,N,D",
+    [(1, 64, 64), (2, 128, 128), (3, 512, 256), (2, 1024, 512),
+     # one step of columns and less; an odd multiple of 64; the deepest
+     # and the shallowest contraction over several blocks of rows
+     (3, 64, 512), (2, 192, 128), (2, 320, 64), (1, 4096, 64), (9, 384, 512)],
+)
+def test_matmul_rowmin_matches_plain_version(cuda, P, N, D):
+    d1, d2t = k2.inputs(D, seed=N + D, device=cuda, pairs=P, n=N)
+    got = _launch_rowmin(d1, d2t)
     want = k2.matmul_rowmin_reference(d1, d2t)
-    assert got.dtype == torch.float32 and got.shape == (P, N)
     assert torch.all((got - want).abs() <= 1e-4 * (1 + want.abs()))
+    # Two launches on the same inputs give the same bits.
+    assert torch.equal(got, _launch_rowmin(d1, d2t))
+
+
+@pytest.mark.parametrize("N", [64, 192, 448])
+def test_matmul_rowmin_tail_columns_do_not_win(cuda, rng, N):
+    """N an odd multiple of 64 with every product positive: a column past N
+    that the kernel read as zeros would be each row's minimum."""
+    P, D = 2, 128
+    d1 = torch.tensor(np.abs(rng.normal(size=(P, N, D))) + 0.5, device=cuda).bfloat16()
+    d2t = torch.tensor(np.abs(rng.normal(size=(P, D, N))) + 0.5, device=cuda).bfloat16()
+    got = _launch_rowmin(d1, d2t)
+    want = k2.matmul_rowmin_reference(d1, d2t)
+    assert got.min() > 0.25 * D
+    assert torch.all((got - want).abs() <= 1e-4 * (1 + want.abs()))
+
+
+@pytest.mark.parametrize("N,D", [(256, 64), (192, 128), (384, 256)])
+def test_matmul_rowmin_structured_inputs_are_exact(cuda, N, D):
+    """Inputs that turn a layout mistake into an exact mismatch. Row i of d1
+    is the unit vector e_(i mod D), so out[p, i] = min_j d2t[p, i mod D, j].
+    d2t holds integers exact in bf16, 64 + (j + 5 d) % 128, except one
+    smaller value per depth row, 1 + d % 16 + 16 p, at a known column that is
+    put in turn into every group of 8 columns (so also into each half of a
+    128-column step, and into a last step of 64)."""
+    P = 2
+    i = np.arange(N)
+    d1 = np.zeros((P, N, D), np.float32)
+    d1[:, i, i % D] = 1.0
+    d, j = np.meshgrid(np.arange(D), np.arange(N), indexing="ij")
+    base = (64 + (j + 5 * d) % 128).astype(np.float32)
+    low = 1 + np.arange(D) % 16
+    want = np.stack([low[i % D] + 16 * p for p in range(P)]).astype(np.float32)
+    d1 = torch.tensor(d1, device=cuda).bfloat16()
+    for group in range(N // 8):
+        d2t = np.stack([base, base])
+        cols = 8 * group + np.arange(D) % 8
+        for p in range(P):
+            d2t[p, np.arange(D), cols] = low + 16 * p
+        got = _launch_rowmin(d1, torch.tensor(d2t, device=cuda).bfloat16())
+        np.testing.assert_array_equal(got.cpu().numpy(), want, err_msg=f"group {group}")
 
 
 def test_matmul_rowmin_rejects_bad_shapes(cuda):
@@ -160,6 +212,16 @@ def test_matmul_rowmin_rejects_bad_shapes(cuda):
         k2.matmul_rowmin(d1[:, :96].contiguous(), d2t[..., :96].contiguous())
     with pytest.raises(ValueError, match="D=96"):
         k2.matmul_rowmin(d1[..., :96].contiguous(), d2t[:, :96].contiguous())
+    # The deepest contraction that stays resident in shared memory runs; the
+    # next multiple of 64 is refused by name.
+    deepest = k2._kernel_lib().matmul_rowmin_max_depth()
+    assert deepest >= 512
+    deep1, deep2t = k2.inputs(deepest, device=cuda, pairs=1, n=128)
+    want = k2.matmul_rowmin_reference(deep1, deep2t)
+    assert torch.all((_launch_rowmin(deep1, deep2t) - want).abs() <= 1e-4 * (1 + want.abs()))
+    over1, over2t = k2.inputs(deepest + 64, device=cuda, pairs=1, n=128)
+    with pytest.raises(ValueError, match=f"D={deepest + 64}"):
+        k2.matmul_rowmin(over1, over2t)
     with pytest.raises(ValueError, match="bfloat16"):
         k2.matmul_rowmin(d1.float(), d2t)
     with pytest.raises(ValueError, match="contiguous"):
