@@ -122,8 +122,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_arrive_expect_tx(full + 8 * s, BL::STAGE_BYTES);
         for (int h = 0; h < 2; ++h)
           tma_load_2d(ring + s * BL::STAGE_BYTES + h * BOX_BYTES, &map_b,
-                      full + 8 * s, BL::c0(kc * KC, tile * TJ, h),
-                      BL::c1(p * D, kc * KC, tile * TJ, h));
+                      full + 8 * s, BL::c0(tile * TJ, h),
+                      BL::c1(p * D, kc * KC));
         if (++s == STAGES) {
           s = 0;
           parity ^= 1;
@@ -136,9 +136,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int t = threadIdx.x & 127;
   const bool signals = (t & 31) == 0;
   const uint32_t a0 = slab + wg * (MMA_M * ROW_BYTES);  // this warpgroup's rows
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float acc[64];  // a tile's first `wgmma` overwrites it
   float lo = BIG, hi = BIG;
   int s = 0;
   uint32_t parity = 0;
@@ -193,8 +191,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 extern "C" {
 
-// N must be a multiple of it.
-int matmul_rowmin_row_tile() { return BOX_ROWS; }
+// N must be a multiple of it (the rows of a TMA box).
+int matmul_rowmin_n_multiple() { return BOX_ROWS; }
 
 // Contraction chunk: D must be a multiple of it.
 int matmul_rowmin_k_chunk() { return KC; }

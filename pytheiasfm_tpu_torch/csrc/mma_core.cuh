@@ -61,13 +61,24 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
                : "memory");
 }
 
+// Nanoseconds on the card's global timer.
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
 // Waits until the barrier's phase differs from `parity`. A wait that never
-// ends is a fault of the kernel's bookkeeping; it traps after 2^22 polls
-// (many times the kernel's whole run) so that the launch fails instead of
-// hanging the card.
+// ends is a fault of the kernel's bookkeeping: after WAIT_LIMIT_NS on the
+// card's timer (read every 4096 polls, so a wait that ends pays nothing for
+// it) the thread traps and the launch fails instead of hanging the card. A
+// trap leaves the CUDA context unusable: the process must end.
+constexpr uint64_t WAIT_LIMIT_NS = 2000000000ull;  // 2 s
+
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
+  uint64_t since = 0;
+  for (uint32_t polls = 1; !done; ++polls) {
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -77,7 +88,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-    if (polls == (1u << 22)) __trap();
+    if (!done && (polls & 4095u) == 0) {
+      const uint64_t now = global_ns();
+      if (since == 0)
+        since = now;
+      else if (now - since > WAIT_LIMIT_NS)
+        __trap();
+    }
   }
 }
 
@@ -151,11 +168,10 @@ struct BColumnsContiguous {
   static constexpr uint32_t STAGE_BYTES = 2 * BOX_BYTES;
   // TMA coordinates (innermost first) of half `h` of the stage at depth k0,
   // column col0, in a map over [depth rows, columns] starting at row `base`.
-  static __device__ __forceinline__ int c0(int /*k0*/, int col0, int h) {
+  static __device__ __forceinline__ int c0(int col0, int h) {
     return col0 + BOX_INNER * h;
   }
-  static __device__ __forceinline__ int c1(int base, int k0, int /*col0*/,
-                                           int /*h*/) {
+  static __device__ __forceinline__ int c1(int base, int k0) {
     return base + k0;
   }
 };

@@ -56,7 +56,7 @@ def _kernel_lib():
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     )
     lib.matmul_rowmin_launch.restype = ctypes.c_int
-    for size in ("row_tile", "k_chunk", "max_depth", "block_rows", "col_tile"):
+    for size in ("n_multiple", "k_chunk", "max_depth", "block_rows", "col_tile"):
         getattr(lib, f"matmul_rowmin_{size}").restype = ctypes.c_int
     return lib
 
@@ -75,12 +75,15 @@ def matmul_rowmin(d1, d2t):
     """Row minima of the bf16 product d1 @ d2t with f32 accumulation.
 
     d1 [P, N, D], d2t [P, D, N]; on CUDA both bf16, contiguous, N a
-    multiple of the kernel's row tile and D of its contraction chunk (64
+    multiple of the kernel's TMA box rows and D of its contraction chunk (64
     each), D at most what the kernel keeps resident in shared memory (640).
     Returns [P, N] f32.
 
     CPU tensors go to `matmul_rowmin_reference`; CUDA tensors launch the
-    kernel (and count the launch in `matmul_rowmin.launches`).
+    kernel (and count the launch in `matmul_rowmin.launches`). A barrier
+    wait inside the kernel that does not end within 2 s traps: the launch
+    then fails at the next synchronisation and the process's CUDA context
+    is unusable from there on.
     """
     if not d1.is_cuda:
         return matmul_rowmin_reference(d1, d2t)
@@ -94,7 +97,7 @@ def matmul_rowmin(d1, d2t):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"matmul_rowmin: {name} must be contiguous and 16-byte aligned")
     lib = _kernel_lib()
-    ti, kc = lib.matmul_rowmin_row_tile(), lib.matmul_rowmin_k_chunk()
+    ti, kc = lib.matmul_rowmin_n_multiple(), lib.matmul_rowmin_k_chunk()
     if Pp == 0 or Np == 0 or Np % ti:
         raise ValueError(f"matmul_rowmin: N={Np} must be a positive multiple of {ti}")
     if D == 0 or D % kc or D > lib.matmul_rowmin_max_depth():
