@@ -6,12 +6,13 @@
 Phases, each printed (flushed) as it ends:
   1. build every kernel of the port from `pytheiasfm_tpu_torch/csrc/`
      (one nvcc per source, all at once), print what ptxas reports, and
-     count the `wgmma` instructions (HGMMA) in K2's machine code;
+     count the `wgmma` instructions (HGMMA) in each kernel's machine code;
   2. hold each kernel against its plain PyTorch version on the card and time
      both, with the one PyTorch call that computes the same function where
      there is one: K1 (`streaming_top2`) at the bench shape and at N=64; K2
      (`matmul_rowmin`) at P=8, N=4096 for D in {128, 256, 512} and at N=64,
-     with the bytes a launch reads through L2 by the kernel's tile sizes;
+     each with the bytes a launch reads through L2 by the kernel's tile
+     sizes;
      then drive K2's own path, the roofline sweep
      (`tools.exp_matcher_roofline.main`), with its launch count set to 0
      just before and read just after;
@@ -92,6 +93,10 @@ K2_REL_TOL = 1e-4  # K2: max |delta| <= 1e-4 * (1 + |ref|)
 # section 6). Printed in the log beside this run's times; it is no
 # measurement of this run, so it stays out of the `kernels` line.
 K2_PREV_MS = {128: 0.3393, 256: 0.6158, 512: 1.2351}
+# K1 at P=8, N=4096, D=128 and at the slice's P=496, in ms: the WMMA kernel
+# with a partial-buffer pass that the present one replaced, on the same card
+# (PERF.md, section 6). Printed in the log only, as K2_PREV_MS is.
+K1_PREV_MS = {8: 0.5972, 496: 33.080}
 
 
 def log(*args):
@@ -184,9 +189,12 @@ def phase_kernels(dev):
     b1t = bench[1].mT
     k1["bench_bmm_ms"] = cuda_time_ms(lambda: torch.bmm(bench[0], b1t), iters=20)
     k1["bench_bound_ms"], _, terms = top2_bound_ms(8, 4096, 128)
-    log(f"[k1] P=8 N=4096 D=128: kernel {k1['bench_ms']:.4f} ms, plain "
-        f"{k1['bench_plain_ms']:.4f} ms, torch.bmm (product alone) {k1['bench_bmm_ms']:.4f} ms, "
-        f"bound {k1['bench_bound_ms']:.4f} ms ({terms})")
+    l2_bytes = sm.l2_bytes_per_launch(8, 4096, 128)
+    log(f"[k1] P=8 N=4096 D=128: kernel {k1['bench_ms']:.4f} ms (the kernel it replaced "
+        f"{K1_PREV_MS[8]:.4f} ms), plain {k1['bench_plain_ms']:.4f} ms, torch.bmm (product "
+        f"alone) {k1['bench_bmm_ms']:.4f} ms, bound {k1['bench_bound_ms']:.4f} ms ({terms}); "
+        f"{l2_bytes / 1e9:.3f} GB through L2 a launch, reckoned from the tile sizes (with this "
+        f"time that implies {l2_bytes / k1['bench_ms'] / 1e9:.2f} TB/s; not a counter)")
     del bench, small, b1t
 
     errs = [check_rowmin(*k2.inputs(128, seed=9, device=dev, n=64), "P=8 N=64 D=128")]
@@ -415,8 +423,12 @@ def phase_slice(dev):
 
     slice_plain_ms = cuda_time_ms(plain_all, iters=1, warmup=1)
     slice_bound_ms, bound_by, terms = top2_bound_ms(P, N, D)
-    log(f"[k1] slice shape P={P} N={N} D={D}: kernel {slice_ms:.3f} ms, plain (8-pair blocks) "
-        f"{slice_plain_ms:.3f} ms, bound {slice_bound_ms:.3f} ms ({terms})")
+    l2_bytes = sm.l2_bytes_per_launch(P, N, D)
+    log(f"[k1] slice shape P={P} N={N} D={D}: kernel {slice_ms:.3f} ms (the kernel it replaced "
+        f"{K1_PREV_MS[496]:.3f} ms at P=496), plain (8-pair blocks) {slice_plain_ms:.3f} ms, "
+        f"bound {slice_bound_ms:.3f} ms ({terms}); {l2_bytes / 1e9:.2f} GB through L2 a launch, "
+        f"reckoned from the tile sizes ({l2_bytes / slice_ms / 1e9:.2f} TB/s implied; not a "
+        f"counter)")
     return dict(launches=runs["b"][2], check=check, shape=[P, N, D], ms=slice_ms,
                 plain_ms=slice_plain_ms, bound_ms=slice_bound_ms, bound_by=bound_by)
 
@@ -437,11 +449,12 @@ def main() -> int:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    spills = re.findall(r"(\d+) bytes spill", cuda_build.build_log(k2.KERNEL))
-    hgmma = cuda_build.sass(k2.KERNEL).count("HGMMA")
-    log(f"[build] {k2.KERNEL}: {hgmma} HGMMA (wgmma) instructions in the built library")
-    if hgmma < 1 or not spills or any(int(n) for n in spills):
-        raise RuntimeError(f"{k2.KERNEL}: no wgmma in the built library, or ptxas spilled")
+    for name in (sm.KERNEL, k2.KERNEL):
+        spills = re.findall(r"(\d+) bytes spill", cuda_build.build_log(name))
+        hgmma = cuda_build.sass(name).count("HGMMA")
+        log(f"[build] {name}: {hgmma} HGMMA (wgmma) instructions in the built library")
+        if hgmma < 1 or not spills or any(int(n) for n in spills):
+            raise RuntimeError(f"{name}: no wgmma in the built library, or ptxas spilled")
 
     # 2. Kernels against their plain versions; K2's own path.
     k1, k1_checks, rowmin = phase_kernels(dev)

@@ -4,8 +4,9 @@
 //
 // A kernel that includes this keeps the A operand (rows x depth, depth
 // contiguous: "K-major") and streams the B operand through a ring of stages.
-// What depends on how B lies in memory is in one traits struct
-// (`BColumnsContiguous` below); everything else is shared.
+// What depends on how B lies in memory is in a traits struct
+// (`BColumnsContiguous` for K2's d2t, `BDepthContiguous` for K1's d2);
+// everything else is shared.
 //
 // Shared-memory layout, the same for a TMA box and for a `wgmma` operand:
 // rows of 128 bytes (64 bf16), 8 rows to a 1024-byte swizzle atom, the 16-byte
@@ -112,6 +113,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global memory at `src` (16-byte aligned)
+// into shared memory at `dst`, reported to `bar`. Issued by one thread.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // ---- wgmma -----------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -173,6 +185,26 @@ struct BColumnsContiguous {
   }
   static __device__ __forceinline__ int c1(int base, int k0) {
     return base + k0;
+  }
+};
+
+// The B operand kept as columns x depth with the depth contiguous (K-major,
+// `wgmma`'s plain B): the same layout as the A operand. A stage of 128
+// columns x 64 depth is two 64 x 64 boxes, one per 64 columns, laid one
+// after the other, so every 8 columns are one atom (SBO) and LBO is not read
+// under a swizzle; a step of MMA_K along the depth is 32 bytes inside the row.
+struct BDepthContiguous {
+  static constexpr int TNSP = 0;
+  static constexpr uint32_t LBO = ADepthContiguous::LBO;
+  static constexpr uint32_t SBO = ADepthContiguous::SBO;
+  static constexpr uint32_t K_STEP_BYTES = ADepthContiguous::K_STEP_BYTES;
+  static constexpr uint32_t STAGE_BYTES = 2 * BOX_BYTES;
+  // TMA coordinates (innermost first) of half `h` of the stage at depth k0,
+  // column col0, in a map over [columns, depth] whose columns start at row
+  // `base`.
+  static __device__ __forceinline__ int c0(int k0) { return k0; }
+  static __device__ __forceinline__ int c1(int base, int col0, int h) {
+    return base + col0 + BOX_ROWS * h;
   }
 };
 

@@ -4,10 +4,13 @@ Counterpart of the JAX package's `matching/pallas_matcher.py`:
 `streaming_top2` replaces the Pallas kernel of the same name (pallas_call at
 `pallas_matcher.py:195`), `match_descriptors_batch_streaming` the wrapper
 `match_descriptors_batch_pallas` (`:236-289`). The kernel is
-`csrc/streaming_top2.cu`, CUDA C++ for Hopper (`sm_90a`), whose header
-states its bound and design. `streaming_top2_reference` is its plain
-PyTorch version; `streaming_top2` runs it for tensors on the CPU only, and
-on a CUDA tensor launches the kernel or raises.
+`csrc/streaming_top2.cu`, CUDA C++ for Hopper (`sm_90a`) on the product
+core `csrc/mma_core.cuh`, whose header states its bound and design: TMA
+loads, `wgmma`, and both directions as row top-2s taken from the
+accumulator registers (the reverse one on the transposed product).
+`streaming_top2_reference` is its plain PyTorch version; `streaming_top2`
+runs it for tensors on the CPU only, and on a CUDA tensor launches the
+kernel or raises.
 
 The wrapper keeps the JAX wrapper's conventions: norms from the f32
 descriptors, descriptors to the kernel in bf16, +BIG in the norms of masked
@@ -28,7 +31,9 @@ import torch.nn.functional as F
 from ..utils.cuda_build import load_library
 
 __all__ = [
+    "l2_bytes_per_launch",
     "match_descriptors_batch_streaming",
+    "padded_norms",
     "streaming_inputs",
     "streaming_top2",
     "streaming_top2_reference",
@@ -37,6 +42,8 @@ __all__ = [
 BIG = 3.4e38  # the TPU kernel's finite "infinity" (`pallas_matcher.py:50`)
 KERNEL = "streaming_top2"
 K_CHUNK = 64  # the kernel's contraction chunk (KC in the .cu): D pads to it
+BLOCK_ROWS = 128  # rows per block (R in the .cu)
+COL_TILE = 128  # columns per tile (TJ in the .cu)
 
 
 def _init_merge(m1, m2, arg, big):
@@ -86,24 +93,47 @@ def _kernel_lib():
     """The built kernel library with its C signatures declared."""
     lib = load_library(KERNEL)
     lib.streaming_top2_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
     )
     lib.streaming_top2_launch.restype = ctypes.c_int
-    lib.streaming_top2_row_tile.restype = ctypes.c_int
-    lib.streaming_top2_k_chunk.restype = ctypes.c_int
+    for size in ("k_chunk", "max_depth", "block_rows", "col_tile"):
+        getattr(lib, f"streaming_top2_{size}").restype = ctypes.c_int
     return lib
+
+
+def padded_norms(a, n_pad: int):
+    """Norms [P, N] as the kernel reads them: [P, n_pad] f32 (n_pad a
+    multiple of `COL_TILE`, at least N), +inf in the columns past N so that
+    they never enter a top-2. The tensor itself when N == n_pad."""
+    n = a.shape[1]
+    return a if n == n_pad else F.pad(a, (0, n_pad - n), value=float("inf"))
+
+
+def l2_bytes_per_launch(pairs: int, n: int, D: int) -> int:
+    """Bytes one launch reads through L2, reckoned from the tile sizes: each
+    block reads its [BLOCK_ROWS, D] bf16 slab once, and for every tile of
+    `COL_TILE` columns the tile's bf16 rows and their f32 norms (the row
+    norms, 4 bytes a row, are left out). The grid has a block for every
+    `BLOCK_ROWS` rows of each pair in each of the two directions."""
+    blocks = 2 * pairs * -(-n // BLOCK_ROWS)
+    tiles = -(-n // COL_TILE)
+    return blocks * (BLOCK_ROWS * D * 2 + tiles * COL_TILE * (D * 2 + 4))
 
 
 def streaming_top2(d1, d2, a1, a2):
     """Fused both-direction top-2 over squared-L2 distances.
 
-    d1, d2 [P, N, D] bf16 (on CUDA: contiguous, D a multiple of
-    `K_CHUNK`), a1/a2 [P, N] f32 = |d|^2 with +BIG on masked rows.
+    d1, d2 [P, N, D] bf16 (on CUDA: contiguous, D a positive multiple of
+    `K_CHUNK`, at most the kernel's resident depth, 640), a1/a2 [P, N] f32
+    = |d|^2 with +BIG on masked rows.
     Returns (fwd_best1, fwd_best2, fwd_arg [P, N] into d2, rev_best1,
     rev_best2, rev_arg [P, N] into d1); args are int32.
 
     CPU tensors go to `streaming_top2_reference`; CUDA tensors launch the
-    kernel (and count the launch in `streaming_top2.launches`).
+    kernel (and count the launch in `streaming_top2.launches`). A barrier
+    wait inside the kernel that does not end within 2 s traps: the launch
+    then fails at the next synchronisation and the process's CUDA context
+    is unusable from there on.
     """
     if not d1.is_cuda:
         return streaming_top2_reference(d1, d2, a1, a2)
@@ -122,25 +152,26 @@ def streaming_top2(d1, d2, a1, a2):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"streaming_top2: {name} must be contiguous and 16-byte aligned")
     lib = _kernel_lib()
-    kc = lib.streaming_top2_k_chunk()
-    if D % kc:
-        raise ValueError(f"streaming_top2: D={D} must be a multiple of {kc}")
+    kc, deepest = lib.streaming_top2_k_chunk(), lib.streaming_top2_max_depth()
+    if D == 0 or D % kc or D > deepest:
+        raise ValueError(
+            f"streaming_top2: D={D} must be a positive multiple of {kc}, at most "
+            f"{deepest} (the rows of a block stay in shared memory)"
+        )
     if P == 0 or N == 0:
         raise ValueError("streaming_top2: empty batch")
-    n_it = -(-N // lib.streaming_top2_row_tile())
     dev = d1.device
     f32, i32 = torch.float32, torch.int32
     fb1, fb2, rb1, rb2 = (torch.empty((P, N), dtype=f32, device=dev) for _ in range(4))
     fa, ra = (torch.empty((P, N), dtype=i32, device=dev) for _ in range(2))
-    pb1, pb2 = (torch.empty((P, n_it, N), dtype=f32, device=dev) for _ in range(2))
-    pa = torch.empty((P, n_it, N), dtype=i32, device=dev)
+    ldn = -(-N // COL_TILE) * COL_TILE
+    a1, a2 = padded_norms(a1, ldn), padded_norms(a2, ldn)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.streaming_top2_launch(
-        d1.data_ptr(), d2.data_ptr(), a1.data_ptr(), a2.data_ptr(), P, N, D,
+        d1.data_ptr(), d2.data_ptr(), a1.data_ptr(), a2.data_ptr(), P, N, D, ldn,
         fb1.data_ptr(), fb2.data_ptr(), fa.data_ptr(),
-        rb1.data_ptr(), rb2.data_ptr(), ra.data_ptr(),
-        pb1.data_ptr(), pb2.data_ptr(), pa.data_ptr(), stream,
+        rb1.data_ptr(), rb2.data_ptr(), ra.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"streaming_top2 kernel launch failed: CUDA error {err}")

@@ -89,12 +89,125 @@ def _launch(args):
     return out
 
 
-@pytest.mark.parametrize("P,N,D", [(2, 64, 64), (2, 200, 128), (4, 1024, 128), (1, 4096, 128)])
+@pytest.mark.parametrize(
+    "P,N,D",
+    [(2, 64, 64), (2, 200, 128), (4, 1024, 128), (1, 4096, 128),
+     # N not a multiple of the 128-row block or the 128-column tile; depths
+     # from the shallowest to the deepest multiples of 64 below 640
+     (3, 192, 192), (2, 320, 256), (3, 1000, 512), (2, 100, 64)],
+)
 def test_streaming_top2_matches_plain_version(cuda, rng, P, N, D):
     args = _kernel_inputs(*_descs(rng, P, N, D), *_masks(P, N), cuda)
-    got = _assert_top2_close(_launch(args), sm.streaming_top2_reference(*args))
+    first = _launch(args)
+    got = _assert_top2_close(first, sm.streaming_top2_reference(*args))
     # Masked rows come out as the TPU kernel's accumulator: (BIG, BIG, 0).
     assert got[0][0, 5] == np.float32(BIG) and got[2][0, 5] == 0
+    # Two launches on the same inputs give the same bits.
+    for a, b in zip(first, _launch(args)):
+        assert torch.equal(a, b)
+
+
+def _structured(P, N, D, low_at):
+    """Inputs that turn a layout or merge mistake into an exact mismatch.
+    Row i of `unit` is e_(i mod D); `ints` holds integers exact in bf16,
+    64 + (j + 5 d) % 128, except one larger value per depth d, 200 + d % 32
+    + 8 p, at row low_at[d] of pair p. With norms 0 for `unit` and 512 for
+    `ints`, distance(i, j) = 512 - 2 ints[p, j, i mod D]: row i's minimum is
+    at j = low_at[i mod D], and every distance is an integer."""
+    i = np.arange(N)
+    unit = np.zeros((P, N, D), np.float32)
+    unit[:, i, i % D] = 1.0
+    j, d = np.meshgrid(np.arange(N), np.arange(D), indexing="ij")
+    ints = np.stack([(64 + (j + 5 * d) % 128).astype(np.float32)] * P)
+    for p in range(P):
+        ints[p, low_at, np.arange(D)] = 200 + np.arange(D) % 32 + 8 * p
+    return unit, ints
+
+
+@pytest.mark.parametrize("N,D", [(256, 64), (192, 128), (320, 128)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_streaming_top2_structured_inputs_are_exact(cuda, N, D, reverse):
+    """The minimum placed in turn into every group of 8 (so at every one of
+    the 128 positions of a block's rows and of a tile's columns: each row
+    lane, both `acc_row` halves, each warp, both warpgroups, each half of a
+    tile, a last tile of 64), in the forward direction (the row top-2, the
+    minimum among the columns) or in the reverse one (the column top-2, the
+    minimum among the rows). All six outputs equal the plain version's
+    bits."""
+    P = 2
+    for group in range(N // 8):
+        low_at = 8 * group + np.arange(D) % 8
+        unit, ints = _structured(P, N, D, low_at)
+        zeros = np.zeros((P, N), np.float32)
+        norms = np.full((P, N), 512.0, np.float32)
+        x = [torch.tensor(v, device=cuda).bfloat16() for v in (unit, ints)]
+        z = [torch.tensor(v, device=cuda) for v in (zeros, norms)]
+        args = [x[1], x[0], z[1], z[0]] if reverse else [x[0], x[1], z[0], z[1]]
+        got = [g.cpu() for g in _launch(args)]
+        want = sm.streaming_top2_reference(*[a.cpu() for a in args])
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), f"group {group}, output {k}"
+        arg = got[5] if reverse else got[2]
+        expect = torch.tensor(low_at[np.arange(N) % D], dtype=torch.int32)
+        assert torch.equal(arg, expect.expand(P, N)), f"group {group}"
+
+
+@pytest.mark.parametrize("N", [64, 192, 320])
+def test_streaming_top2_tails_do_not_read_the_next_pair(cuda, rng, N):
+    """A block's rows and a tile's columns past N lie in the next pair's
+    rows. Pair 1's d2 holds pair 0's d1, and pair 2's d1 holds pair 1's d2:
+    a column past N read into pair 0's forward or pair 1's reverse top-2
+    would be at distance 0 and win."""
+    P, D = 3, 128
+    d1, d2 = _descs(rng, P, N, D)
+    d2[1] = d1[0]
+    d1[2] = d2[1]
+    ones = np.ones((P, N), bool)
+    args = _kernel_inputs(d1, d2, ones, ones, cuda)
+    got = _assert_top2_close(_launch(args), sm.streaming_top2_reference(*args))
+    assert got[0][0].min() > 1e-2 and got[3][1].min() > 1e-2
+
+
+def test_streaming_top2_duplicates_keep_the_lowest_index(cuda, rng):
+    """Exact duplicates of d2 rows (columns of the forward product) and of
+    d1 rows (rows of it): in one quad, across the two halves of a tile,
+    across tiles, across warpgroups and across blocks of rows. The lowest
+    index wins and the second best equals the best."""
+    P, N, D = 2, 384, 128
+    d1 = rng.normal(size=(P, N, D)).astype(np.float32)
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    d2 = d1 + 0.05 * rng.normal(size=d1.shape).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)  # row i's match is row i
+    dups = ((8, 9), (20, 84), (7, 140), (3, 70), (5, 300))
+    for lo, hi in dups:
+        d2[:, hi] = d2[:, lo]
+        d1[:, hi] = d1[:, lo]
+    ones = np.ones((P, N), bool)
+    args = _kernel_inputs(d1, d2, ones, ones, cuda)
+    got = _assert_top2_close(_launch(args), sm.streaming_top2_reference(*args), min_agree=1.0)
+    for b1, b2, arg in ((0, 1, 2), (3, 4, 5)):
+        for lo, hi in dups:
+            assert np.all(got[arg][:, [lo, hi]] == lo) and not np.any(got[arg] == hi)
+            np.testing.assert_array_equal(got[b2][:, [lo, hi]], got[b1][:, [lo, hi]])
+
+
+def test_streaming_top2_masked_rows_and_columns(cuda, rng):
+    """A pair whose d1 rows are all masked gives (BIG, BIG, 0) in both
+    directions; masked d2 rows never win a forward top-2."""
+    P, N, D = 2, 256, 128
+    d1, d2 = _descs(rng, P, N, D)
+    m1 = np.ones((P, N), bool)
+    m2 = np.ones((P, N), bool)
+    m1[1] = False
+    m2[0, ::2] = False
+    args = _kernel_inputs(d1, d2, m1, m2, cuda)
+    got = _assert_top2_close(_launch(args), sm.streaming_top2_reference(*args))
+    for b1, b2, arg in ((0, 1, 2), (3, 4, 5)):
+        assert np.all(got[b1][1] == np.float32(BIG)) and np.all(got[b2][1] == np.float32(BIG))
+        assert np.all(got[arg][1] == 0)
+    assert np.all(got[2][0] % 2 == 1) and np.all(got[0][0] < BIG / 2)
+    # The reverse top-2 of a masked column is (BIG, BIG, 0).
+    assert np.all(got[3][0, ::2] == np.float32(BIG)) and np.all(got[5][0, ::2] == 0)
 
 
 def test_streaming_top2_tie_rules(cuda, rng):
@@ -124,6 +237,27 @@ def test_streaming_top2_rejects_bad_inputs(cuda, rng):
     with pytest.raises(ValueError, match="multiple"):
         sm.streaming_top2(args[0][..., :48].contiguous(), args[1][..., :48].contiguous(),
                           *args[2:])
+    # The deepest contraction that stays resident in shared memory runs; the
+    # next multiple of 64 is refused by name.
+    lib = sm._kernel_lib()
+    deepest = lib.streaming_top2_max_depth()
+    assert deepest >= 512
+    for D, run in ((deepest, True), (deepest + 64, False)):
+        deep = _kernel_inputs(*_descs(rng, 1, 128, D), *_masks(1, 128), cuda)
+        if run:
+            _assert_top2_close(_launch(deep), sm.streaming_top2_reference(*deep))
+        else:
+            with pytest.raises(ValueError, match=f"D={D}"):
+                sm.streaming_top2(*deep)
+
+
+def test_streaming_top2_tile_sizes_match_the_wrapper(cuda):
+    """The grid and the L2 bytes the wrapper reckons use the kernel's own
+    tile sizes."""
+    lib = sm._kernel_lib()
+    assert lib.streaming_top2_block_rows() == sm.BLOCK_ROWS
+    assert lib.streaming_top2_col_tile() == sm.COL_TILE
+    assert lib.streaming_top2_k_chunk() == sm.K_CHUNK
 
 
 @pytest.mark.parametrize("N,D", [(64, 128), (256, 32)])

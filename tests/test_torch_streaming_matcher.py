@@ -152,3 +152,44 @@ def test_cpu_tensors_take_the_plain_version(rng):
     for o, r in zip(out, ref):
         assert torch.equal(o, r)
 
+
+
+@pytest.mark.parametrize(
+    "P,N,D,l2_bytes",
+    [
+        # 32 blocks of 128 rows x 8 pairs x 2 directions, each reading a
+        # 32 KB slab and 32 tiles of 128 x (256 + 4) bytes: 1,097,728 bytes
+        (8, 4096, 128, 512 * 1_097_728),
+        (496, 4096, 128, 31_744 * 1_097_728),
+        # N past a block and a tile: 2 blocks a pair and direction, each
+        # reading a 16 KB slab and 2 tiles of 128 x (128 + 4) bytes
+        (2, 200, 64, 8 * (16_384 + 2 * 128 * 132)),
+    ],
+)
+def test_l2_bytes_per_launch_by_hand(P, N, D, l2_bytes):
+    assert sm.l2_bytes_per_launch(P, N, D) == l2_bytes
+
+
+def test_padded_norms_leave_the_plain_version_unchanged(rng):
+    """The wrapper pads each pair's norms to whole tiles of columns with
+    +inf, and the kernel reads descriptors past N from the next pair. The
+    plain version on inputs padded so (extra rows that copy the other side,
+    at distance 0 if they counted), sliced to N, equals it on the unpadded
+    inputs bit for bit, with masked rows and duplicate ties."""
+    P, N, D = 2, 200, 64
+    n_pad = -(-N // sm.COL_TILE) * sm.COL_TILE
+    d1, d2 = _descs(rng, P, N, D)
+    d2[:, 9] = d2[:, 8]
+    d1[:, 150] = d1[:, 3]
+    b1, b2, a1, a2 = _kernel_inputs(d1, d2, *_masks(P, N))
+    a1, a2 = torch.tensor(a1), torch.tensor(a2)
+    want = sm.streaming_top2_reference(b1, b2, a1, a2)
+    extra = n_pad - N
+    p1 = torch.cat([b1, b2[:, :extra]], 1)
+    p2 = torch.cat([b2, b1[:, :extra]], 1)
+    q1, q2 = sm.padded_norms(a1, n_pad), sm.padded_norms(a2, n_pad)
+    assert q1.shape == (P, n_pad) and torch.all(torch.isinf(q1[:, N:]))
+    assert torch.equal(q1[:, :N], a1) and sm.padded_norms(q1, n_pad) is q1
+    got = sm.streaming_top2_reference(p1, p2, q1, q2)
+    for g, w in zip(got, want):
+        assert torch.equal(g[:, :N], w)
