@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's matching slice on one CUDA card.
+"""Drive the PyTorch/CUDA port's matching slice and global-pose steps on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -28,7 +28,17 @@ Phases, each printed (flushed) as it ends:
           adds are counted;
      then check K1 on the slice's own inputs and time it at the slice's
      shape;
-  4. print a {"kernels": [...]} line, the card's name and power limit, and
+  4. global pose on the card: build the native graph core (`g++`), then on
+     the synthetic scene of `pipelines.synthetic_global.build_scene` at its
+     full size (553 views, 50,000 tracks, seed 0), clean and with 15% of
+     its edges corrupted (`tools.global_pose.contaminate`), run steps 1-7
+     of global SfM (`tools.global_pose.run_global_pose`) on the card twice
+     (first and warm, stage seconds printed) and once on the CPU, and hold
+     the card to the CPU (edge sets, orientations, positions), to ground
+     truth (clean) and to the JAX package's own removal counts
+     (contaminated); K1's and K2's launch counts on this path are printed
+     (the path has no hand-written kernel);
+  5. print a {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 It imports nothing of JAX. Without a CUDA card, or outside the repository,
@@ -37,6 +47,7 @@ it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import copy
 import json
 import re
 import subprocess
@@ -52,9 +63,14 @@ from pytheiasfm_tpu_torch.matching import (
     matcher as matcher_module,
     streaming_matcher as sm,
 )
+from pytheiasfm_tpu_torch import native
+from pytheiasfm_tpu_torch.global_pose import filters as gp_filters
 from pytheiasfm_tpu_torch.matching.guided_epipolar import guided_epipolar_match
+from pytheiasfm_tpu_torch.ops import rotation as rotops
+from pytheiasfm_tpu_torch.pipelines import synthetic_global
 from pytheiasfm_tpu_torch.sfm.reconstruction import CameraIntrinsicsPrior
 from pytheiasfm_tpu_torch.tools import exp_matcher_roofline as k2
+from pytheiasfm_tpu_torch.tools import global_pose as gp
 from pytheiasfm_tpu_torch.tools import ring_scene as rs
 from pytheiasfm_tpu_torch.utils import cuda_build
 from pytheiasfm_tpu_torch.utils.timing import cuda_time_ms
@@ -97,6 +113,31 @@ K2_PREV_MS = {128: 0.3393, 256: 0.6158, 512: 1.2351}
 # with a partial-buffer pass that the present one replaced, on the same card
 # (PERF.md, section 6). Printed in the log only, as K2_PREV_MS is.
 K1_PREV_MS = {8: 0.5972, 496: 33.080}
+
+# Global pose (phase 4). Card against CPU in one process: the same edge set
+# after each filter, orientations within 1e-7 rad, positions within a bar
+# times the median distance of the positions from their centroid: 1e-7 on
+# the contaminated scene, 1e-4 on the clean one. Not 1e-7 there: on the
+# clean scene LUD's 200 fixed ADMM steps turn rounding-level differences
+# into 1.8e-5 between the JAX package and the port on the CPU, and 1.6e-5
+# between the JAX function and itself with its input directions scaled by
+# 1 + 1e-15 (tests/test_torch_global_pose_pipeline.py, slow); on the
+# contaminated scene they stay near 1e-11.
+GP_ORIENTATION_TOL_RAD = 1e-7
+GP_POSITION_TOL_REL = {"clean": 1e-4, "contaminated": 1e-7}
+# The JAX package's own results on the CPU (x64) for the same scenes, each
+# bar at 1% (+1e-6) of them. Recorded by
+#   python -m pytest tests/test_torch_global_pose_pipeline.py -m slow -s
+# (JAX 0.9 on the CPU; no TPU number): the clean scene's median rotation
+# error (deg, after `align_orientations`) and median position error (after
+# the Umeyama alignment); the contaminated scene's removal counts.
+JAX_CPU_MEDIAN_ROTATION_DEG = 0.05146458786409195
+JAX_CPU_MEDIAN_POSITION_ERR = 0.013348127572389611
+JAX_CPU_REMOVED = {"orientation filter": 1668, "1DSfM": 2}
+# The same test's 1DSfM filter on 15% of the clean scene's directions
+# corrupted after step 5: what the JAX package removes. The card's count is
+# held equal to it, and the card to the CPU edge for edge.
+JAX_CPU_REMOVED_DIRECTIONS_ONLY = 4510
 
 
 def log(*args):
@@ -433,6 +474,132 @@ def phase_slice(dev):
                 plain_ms=slice_plain_ms, bound_ms=slice_bound_ms, bound_by=bound_by)
 
 
+def _pose_arrays(res, ids):
+    return (np.stack([res.orientations[v] for v in ids]),
+            np.stack([res.positions[v] for v in ids]))
+
+
+def _run_pose(scene, device, label):
+    """Steps 1-7 on fresh copies of the scene; logs the stage seconds."""
+    recon, graph = copy.deepcopy(scene[0]), copy.deepcopy(scene[1])
+    res = gp.run_global_pose(graph, recon, device=device)
+    stages = ", ".join(f"{k} {res.seconds[k]:.3f} s" for k in gp.STAGES)
+    log(f"[pose {label}] {sum(res.seconds.values()):.3f} s ({stages}); edges after each filter: "
+        + ", ".join(f"{k} {len(v)}" for k, v in res.edges.items())
+        + f"; {len(res.positions)} views posed")
+    return res, graph
+
+
+def check_pose(kind, scene, dev):
+    """Steps 1-7 on one scene: card (first, warm) against the CPU, then the
+    scene's own bars. Returns the failures."""
+    failures = []
+    card, graph = _run_pose(scene, dev, f"{kind}: card, first")
+    warm, _ = _run_pose(scene, dev, f"{kind}: card, warm")
+    cpu, _ = _run_pose(scene, "cpu", f"{kind}: CPU")
+    for name in ("initial filter", "orientation filter", "1DSfM"):
+        if card.edges[name] != cpu.edges[name]:
+            failures.append(f"{kind}: the edge sets after the {name} differ, card against CPU "
+                            f"({len(card.edges[name] ^ cpu.edges[name])} edges)")
+    if set(card.positions) != set(cpu.positions) or set(card.orientations) != set(cpu.orientations):
+        failures.append(f"{kind}: the card and the CPU posed different views")
+        return failures
+    ids = sorted(card.positions)
+    (o_card, p_card), (o_cpu, p_cpu), (o_warm, p_warm) = (
+        _pose_arrays(r, ids) for r in (card, cpu, warm))
+    R = torch.as_tensor
+    rel = rotops.angle_axis_to_rotation_matrix(R(o_card)) @ (
+        rotops.angle_axis_to_rotation_matrix(R(o_cpu)).mT)
+    rot_diff = float(torch.linalg.norm(rotops.rotation_matrix_to_angle_axis(rel), dim=-1).max())
+    radius = float(np.median(np.linalg.norm(p_cpu - p_cpu.mean(0), axis=-1)))
+    pos_diff = float(np.linalg.norm(p_card - p_cpu, axis=-1).max()) / radius
+    same = {"edges": card.edges == warm.edges,
+            "orientations": bool(np.array_equal(o_card, o_warm)),
+            "positions": bool(np.array_equal(p_card, p_warm))}
+    log(f"[pose {kind}] card against CPU: orientations {rot_diff:.3e} rad (bar "
+        f"{GP_ORIENTATION_TOL_RAD:g}), positions {pos_diff:.3e} x the median radius "
+        f"{radius:.4f} (bar {GP_POSITION_TOL_REL[kind]:g}); the two card runs are bit-equal in: "
+        + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in same.items())
+        + f" (positions differ by {np.linalg.norm(p_card - p_warm, axis=-1).max() / radius:.3e}"
+        " x the median radius)")
+    if not rot_diff <= GP_ORIENTATION_TOL_RAD:
+        failures.append(f"{kind}: orientations differ from the CPU by {rot_diff:.3e} rad")
+    if not pos_diff <= GP_POSITION_TOL_REL[kind]:
+        failures.append(f"{kind}: positions differ from the CPU by {pos_diff:.3e} relative")
+    removed = ", ".join(f"{k} {v}" for k, v in card.removed.items())
+    log(f"[pose {kind}] edges removed by each filter on the card: {removed}")
+    if kind == "clean":
+        V = scene[0].num_views()
+        rot_err, pos_err = gp.ground_truth_errors(card.orientations, card.positions,
+                                                  scene[3], scene[2])
+        log(f"[pose clean] {len(card.positions)}/{V} views posed; against ground truth: "
+            f"median rotation error {rot_err!r} deg (JAX CPU {JAX_CPU_MEDIAN_ROTATION_DEG!r}), "
+            f"median position error {pos_err!r} (JAX CPU {JAX_CPU_MEDIAN_POSITION_ERR!r})")
+        if len(card.positions) != V or len(card.orientations) != V:
+            failures.append(f"clean: only {len(card.positions)}/{V} views posed")
+        for name, got, want in (("rotation", rot_err, JAX_CPU_MEDIAN_ROTATION_DEG),
+                                ("position", pos_err, JAX_CPU_MEDIAN_POSITION_ERR)):
+            if not abs(got - want) <= 0.01 * want + 1e-6:
+                failures.append(f"clean: median {name} error {got!r}, JAX CPU {want!r}")
+        # 1DSfM on directions corrupted after step 5 (the graph as step 6
+        # left it, the clean run's orientations): the card against the CPU.
+        removed = []
+        for device in (dev, "cpu"):
+            g = copy.deepcopy(graph)
+            corrupted = gp.contaminate(g, rotations=False)
+            before = set(g.edges)
+            gp_filters.filter_view_pairs_from_relative_translation(
+                g, card.orientations, num_iterations=48, translation_projection_tolerance=0.1,
+                rng=np.random.default_rng(0), device=device)
+            removed.append(before - set(g.edges))
+        log(f"[pose clean] 1DSfM on {len(corrupted)} directions corrupted after step 5: the "
+            f"card removes {len(removed[0])}, {len(removed[0] & corrupted)} of them corrupted "
+            f"(JAX CPU on its own state: {JAX_CPU_REMOVED_DIRECTIONS_ONLY!r}); card against "
+            f"CPU: {len(removed[0] ^ removed[1])} edges differ")
+        if len(removed[0]) != JAX_CPU_REMOVED_DIRECTIONS_ONLY:
+            failures.append(f"clean: 1DSfM on corrupted directions removes {len(removed[0])} "
+                            f"edges on the card, the JAX package {JAX_CPU_REMOVED_DIRECTIONS_ONLY}")
+        if removed[0] != removed[1]:
+            failures.append("clean: 1DSfM on corrupted directions removes other edges on the "
+                            "card than on the CPU")
+    else:
+        bad = scene[4]
+        surviving = len(bad & card.edges["1DSfM"])
+        log(f"[pose contaminated] {len(bad)} corrupted edges, {surviving} survive step 6; "
+            f"removed (JAX CPU): " + ", ".join(f"{k} {v}" for k, v in JAX_CPU_REMOVED.items()))
+        for name, want in JAX_CPU_REMOVED.items():
+            if card.removed[name] != want:
+                failures.append(f"contaminated: the {name} removed {card.removed[name]} edges, "
+                                f"the JAX package {want}")
+    return failures
+
+
+def phase_global_pose(dev):
+    """Phase 4: steps 1-7 of global SfM on the full-size synthetic scene,
+    clean and contaminated."""
+    t0 = time.perf_counter()
+    lib = native.build()
+    log(f"[pose] native graph core {lib.name}: {time.perf_counter() - t0:.2f} s")
+    sm.streaming_top2.launches = 0
+    k2.matmul_rowmin.launches = 0
+    failures = []
+    for kind in ("clean", "contaminated"):
+        t0 = time.perf_counter()
+        recon, graph, gt_positions = synthetic_global.build_scene()
+        gt_aa = synthetic_global._look_at_ring(recon.num_views(), np.random.default_rng(0))[2]
+        bad = gp.contaminate(graph) if kind == "contaminated" else set()
+        counts = [i.num_verified_matches for i in graph.edges.values()]
+        log(f"[pose {kind}] scene: {recon.num_views()} views, {recon.num_tracks()} tracks, "
+            f"{recon.num_observations()} observations, {graph.num_edges()} edges (shared tracks "
+            f"median {int(np.median(counts))}, max {max(counts)}), {len(bad)} corrupted; "
+            f"built in {time.perf_counter() - t0:.2f} s")
+        failures += check_pose(kind, (recon, graph, gt_positions, gt_aa, bad), dev)
+    log(f"[pose] K1 launches on this path {sm.streaming_top2.launches}, K2 launches "
+        f"{k2.matmul_rowmin.launches} (no hand-written kernel runs here)")
+    if failures:
+        raise RuntimeError("global-pose checks failed: " + "; ".join(failures))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke.py: no CUDA card; this script needs one")
@@ -463,7 +630,10 @@ def main() -> int:
     sl = phase_slice(dev)
     k1_checks.append(sl["check"])
 
-    # 4. Summary lines.
+    # 4. Global pose at full size.
+    phase_global_pose(dev)
+
+    # 5. Summary lines.
     d128 = next(d for d in rowmin["depths"] if d["D"] == 128)
     kernels = [
         dict(

@@ -1,1 +1,2 @@
-"""Camera model types (the camera models port with the intrinsics slice)."""
+"""Camera models: PINHOLE intrinsics (`intrinsics.py`) and extrinsics and
+projection (`camera.py`); the other seven intrinsics models wait (A1b)."""

@@ -1,0 +1,151 @@
+"""Synthetic Notre-Dame-scale scene for the global SfM pipeline.
+
+Counterpart of `build_scene` in the JAX package's
+`pipelines/synthetic_global.py`: a ring of V cameras looking at the origin,
+view-local tracks, and view-graph edges carrying the ground-truth relative
+poses with calibrated rotation and direction noise (the output contract of
+two-view verification, `twoview_info.h:114`). Given one seed both packages
+build the same views, tracks, observations and edges: the same numpy draws
+in the same order, the rotation math in f64 on CPU tensors.
+
+`run` (the whole pipeline on this scene) comes with the estimator's
+`estimate` (ROADMAP item A8); `tools/global_pose.py` drives its pose steps.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models import camera as cam
+from ..models.intrinsics import CameraIntrinsicsModelType as M
+from ..ops import rotation as rotops
+from ..sfm.reconstruction import CameraIntrinsicsPrior, Reconstruction
+from ..sfm.view_graph import TwoViewInfo, ViewGraph
+
+__all__ = ["build_scene"]
+
+
+def _t(a):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64)
+
+
+def _look_at_ring(V, rng):
+    """GT cameras on a ring of radius 10 looking at the origin:
+    (positions [V, 3], world->camera rotations [V, 3, 3], angle-axis [V, 3])."""
+    angles = np.sort(rng.uniform(0, 2 * np.pi, V))
+    positions = np.stack(
+        [10 * np.cos(angles), 10 * np.sin(angles), rng.normal(size=V) * 0.5], -1
+    )
+    z = -positions / np.linalg.norm(positions, axis=1, keepdims=True)
+    x = np.cross(np.broadcast_to([0.0, 0.0, 1.0], z.shape), z)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    y = np.cross(z, x)
+    R = np.stack([x, y, z], axis=1)  # world->cam
+    aa = rotops.rotation_matrix_to_angle_axis(_t(R)).numpy()
+    return positions, R, aa
+
+
+def build_scene(
+    V=553,
+    T=50_000,
+    obs_per_track=6,
+    neighborhood=20,
+    noise_px=0.5,
+    edge_rot_noise_deg=0.3,
+    edge_pos_noise_deg=1.0,
+    min_shared_tracks=30,
+    seed=0,
+):
+    """Build (recon, view_graph, gt_positions).
+
+    Tracks are view-local (each picks `obs_per_track` views within a ring
+    `neighborhood` of a random center view), so view pairs share realistic
+    track counts; an edge joins two views sharing at least
+    `min_shared_tracks` tracks.
+    """
+    rng = np.random.default_rng(seed)
+    positions, R, aa = _look_at_ring(V, rng)
+    points = rng.uniform(-3, 3, size=(T, 3))
+
+    # Track views: center + ring-local offsets (duplicates within a row are
+    # dropped by add_observations_bulk).
+    centers = rng.integers(0, V, size=T)
+    offs = np.zeros((T, obs_per_track), np.int64)
+    for k in range(obs_per_track):
+        offs[:, k] = rng.integers(-neighborhood, neighborhood + 1, size=T)
+    offs[:, 0] = 0
+    track_views = (centers[:, None] + offs) % V
+
+    prior = CameraIntrinsicsPrior(
+        image_width=3072,
+        image_height=2048,
+        focal_length=1000.0,
+        principal_point=(1536.0, 1024.0),
+    )
+    recon = Reconstruction()
+    for v in range(V):
+        recon.add_view(f"view_{v:04d}", group_id=0 if v else None, prior=prior)
+    recon.set_camera_intrinsics_from_priors()
+    recon.add_tracks_bulk(T)
+
+    obs_view = track_views.reshape(-1).astype(np.int32)
+    obs_track = np.repeat(np.arange(T, dtype=np.int32), obs_per_track)
+    ext = np.concatenate([positions, aa], axis=1)
+    depth, pixel = cam.project_point(
+        _t(ext[obs_view]), _t(recon.intrinsics[0]), _t(points[obs_track]), M.PINHOLE
+    )
+    depth = depth.numpy()
+    uv = pixel.numpy() + rng.normal(size=(len(obs_view), 2)) * noise_px
+    good = depth > 0.5
+    recon.add_observations_bulk(obs_view[good], obs_track[good], uv[good])
+
+    # View graph: pairs sharing >= min_shared_tracks, GT relative pose +
+    # calibrated noise, the edge math batched over all edges.
+    tv = track_views
+    P = obs_per_track
+    pairs_a = []
+    pairs_b = []
+    for i in range(P):
+        for j in range(i + 1, P):
+            a, b = tv[:, i], tv[:, j]
+            lo = np.minimum(a, b)
+            hi = np.maximum(a, b)
+            sel = lo != hi
+            pairs_a.append(lo[sel])
+            pairs_b.append(hi[sel])
+    key = np.concatenate(pairs_a).astype(np.int64) * V + np.concatenate(pairs_b)
+    uniq, counts = np.unique(key, return_counts=True)
+    uniq = uniq[counts >= min_shared_tracks]
+    counts = counts[counts >= min_shared_tracks]
+    E = len(uniq)
+    v1 = (uniq // V).astype(np.int64)
+    v2 = (uniq % V).astype(np.int64)
+
+    R12 = np.einsum("eij,ekj->eik", R[v2], R[v1])  # R2 R1^T
+    ax = rng.normal(size=(E, 3))
+    ax /= np.linalg.norm(ax, axis=1, keepdims=True)
+    ang = np.deg2rad(rng.normal(size=E) * edge_rot_noise_deg)
+    Rn = rotops.angle_axis_to_rotation_matrix(_t(ax * ang[:, None])).numpy()
+    aa12 = rotops.rotation_matrix_to_angle_axis(
+        _t(np.einsum("eij,ejk->eik", Rn, R12))
+    ).numpy()
+    t12 = np.einsum("eij,ej->ei", R[v1], positions[v2] - positions[v1])
+    t12 /= np.linalg.norm(t12, axis=1, keepdims=True)
+    ax2 = rng.normal(size=(E, 3))
+    ax2 -= np.sum(ax2 * t12, axis=1, keepdims=True) * t12
+    ax2 /= np.linalg.norm(ax2, axis=1, keepdims=True)
+    ang2 = np.deg2rad(rng.normal(size=E) * edge_pos_noise_deg)
+    tn = rotops.angle_axis_rotate_point(_t(ax2 * ang2[:, None]), _t(t12)).numpy()
+
+    graph = ViewGraph()
+    for e in range(E):
+        info = TwoViewInfo(
+            focal_length_1=1000.0,
+            focal_length_2=1000.0,
+            rotation_2=aa12[e],
+            position_2=tn[e],
+            num_verified_matches=int(counts[e]),
+        )
+        graph.add_edge(int(v1[e]), int(v2[e]), info)
+    return recon, graph, positions

@@ -12,8 +12,14 @@ order), distances to rtol = atol = 1e-5 where the indices agree; exact
 duplicates must resolve by the tie rules exactly. K2's bar is that of
 `tests/test_torch_exp_matcher_roofline.py`: max |delta| <= 1e-4 * (1 + |ref|).
 The triangulation's chunked `eigh` is held here too, above the batch size
-that cuSOLVER takes in one call.
+that cuSOLVER takes in one call, and steps 1-7 of global SfM (no
+hand-written kernel; eager PyTorch in f64) on a small contaminated scene,
+card against CPU: the same edge sets, orientations within 1e-7 rad,
+positions within 1e-7 x the median radius.
 """
+
+import copy
+
 
 import numpy as np
 import pytest
@@ -22,7 +28,13 @@ import torch
 from pytheiasfm_tpu_torch.matching import brute_force
 from pytheiasfm_tpu_torch.matching import streaming_matcher as sm
 from pytheiasfm_tpu_torch.ops import triangulation
+from pytheiasfm_tpu_torch.ops.rotation_np import (
+    angle_axis_to_rotation_matrix_np,
+    rotation_matrix_to_angle_axis_np,
+)
+from pytheiasfm_tpu_torch.pipelines.synthetic_global import build_scene
 from pytheiasfm_tpu_torch.tools import exp_matcher_roofline as k2
+from pytheiasfm_tpu_torch.tools import global_pose
 
 pytestmark = pytest.mark.cuda
 
@@ -376,3 +388,26 @@ def test_eigh_in_chunks_above_the_cusolver_batch(cuda):
     assert torch.all((vals.cpu() - want).abs() <= tol)
     back = (vecs * vals[..., None, :]) @ vecs.mT
     assert torch.all((back.cpu() - a).abs() <= tol)
+
+
+def test_global_pose_steps_on_the_card_match_the_cpu(cuda):
+    """Steps 1-7 on the 48-view scene with 15% of its edges corrupted."""
+    recon, graph, _ = build_scene(V=48, T=4000, neighborhood=6)
+    bad = global_pose.contaminate(graph)
+    runs = [
+        global_pose.run_global_pose(copy.deepcopy(graph), copy.deepcopy(recon), device=device)
+        for device in (cuda, "cpu")
+    ]
+    card, cpu = runs
+    assert card.edges == cpu.edges and card.removed == cpu.removed
+    assert card.removed["orientation filter"] == len(bad)
+    ids = sorted(cpu.positions)
+    assert sorted(card.positions) == ids and len(ids) == 48
+    R_card = angle_axis_to_rotation_matrix_np(np.stack([card.orientations[v] for v in ids]))
+    R_cpu = angle_axis_to_rotation_matrix_np(np.stack([cpu.orientations[v] for v in ids]))
+    angles = np.linalg.norm(rotation_matrix_to_angle_axis_np(R_card @ R_cpu.transpose(0, 2, 1)), axis=-1)
+    assert angles.max() <= 1e-7
+    p_card = np.stack([card.positions[v] for v in ids])
+    p_cpu = np.stack([cpu.positions[v] for v in ids])
+    radius = np.median(np.linalg.norm(p_cpu - p_cpu.mean(0), axis=-1))
+    assert np.linalg.norm(p_card - p_cpu, axis=-1).max() <= 1e-7 * radius
