@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's matching slice and global-pose steps on one CUDA card.
+"""Drive the PyTorch/CUDA port's matching slice and global SfM on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -38,7 +38,18 @@ Phases, each printed (flushed) as it ends:
      truth (clean) and to the JAX package's own removal counts
      (contaminated); K1's and K2's launch counts on this path are printed
      (the path has no hand-written kernel);
-  5. print a {"kernels": [...]} line, the card's name and power limit, and
+  5. global SfM end to end: `pipelines.synthetic_global.run()` on the card
+     at full size (553 views, 50,000 tracks, seed 0, the reference-default
+     options: free focal + radial intrinsics, XYZW_MANIFOLD tracks), a
+     first and a warm run, through `GlobalReconstructionEstimator.estimate`
+     (steps 1-7, triangulation, iterative-Schur bundle adjustment with
+     outlier removal and retriangulation); each stage's seconds and each BA
+     round (LM iterations, cost before and after, outliers removed) are
+     printed, and each run is held to 553/553 views, `summary.success`, the
+     estimated track count and the median position error after Umeyama
+     against the JAX package's CPU results, and to the first run; K1's and
+     K2's launch counts on this path are printed (no hand-written kernel);
+  6. print a {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 It imports nothing of JAX. Without a CUDA card, or outside the repository,
@@ -71,8 +82,9 @@ from pytheiasfm_tpu_torch.pipelines import synthetic_global
 from pytheiasfm_tpu_torch.sfm.reconstruction import CameraIntrinsicsPrior
 from pytheiasfm_tpu_torch.tools import exp_matcher_roofline as k2
 from pytheiasfm_tpu_torch.tools import global_pose as gp
+from pytheiasfm_tpu_torch.tools import global_sfm
 from pytheiasfm_tpu_torch.tools import ring_scene as rs
-from pytheiasfm_tpu_torch.utils import cuda_build
+from pytheiasfm_tpu_torch.utils import counters, cuda_build
 from pytheiasfm_tpu_torch.utils.timing import cuda_time_ms
 
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 bandwidth).
@@ -138,6 +150,22 @@ JAX_CPU_REMOVED = {"orientation filter": 1668, "1DSfM": 2}
 # corrupted after step 5: what the JAX package removes. The card's count is
 # held equal to it, and the card to the CPU edge for edge.
 JAX_CPU_REMOVED_DIRECTIONS_ONLY = 4510
+
+# Global SfM end to end (phase 5). The JAX package's own results on the CPU
+# (x64; the BA and the track estimator at their f32 defaults) for
+# `synthetic_global.run()` at 553 views, 50,000 tracks, seed 0, recorded by
+#   python -m pytest tests/test_torch_global_estimator.py -m slow -s
+# (JAX 0.9 on the host CPU of an H100 machine; no TPU number). Each run on the
+# card is held to 553/553 views, the estimated track count within 0.5% and
+# the median position error within 2% (+1e-6) of these; the warm run to the
+# first within the same bars. The BA rounds are printed beside the card's.
+JAX_CPU_SFM_VIEWS = 553
+JAX_CPU_SFM_ESTIMATED_TRACKS = 49994
+JAX_CPU_SFM_MEDIAN_POSITION_ERR = 0.0028952217685035636
+JAX_CPU_SFM_MEAN_POSITION_ERR = 0.003043442944584052
+JAX_CPU_SFM_BA_ROUNDS = "round 0: 5 LM iterations, cost 5.646e+04 -> 5.153e+04, 0 outliers"
+SFM_TRACK_TOL_REL = 0.005
+SFM_MEDIAN_TOL_REL = 0.02
 
 
 def log(*args):
@@ -600,6 +628,52 @@ def phase_global_pose(dev):
         raise RuntimeError("global-pose checks failed: " + "; ".join(failures))
 
 
+def _sfm_failures(label, res, tracks_want, median_want):
+    failures = []
+    if not res["success"]:
+        failures.append(f"{label}: summary.success is False")
+    if res["views"] != JAX_CPU_SFM_VIEWS:
+        failures.append(f"{label}: {res['views']}/{JAX_CPU_SFM_VIEWS} views estimated")
+    if not abs(res["estimated_tracks"] - tracks_want) <= SFM_TRACK_TOL_REL * tracks_want:
+        failures.append(f"{label}: {res['estimated_tracks']} tracks estimated, against "
+                        f"{tracks_want}")
+    if not abs(res["median_pos_err"] - median_want) <= SFM_MEDIAN_TOL_REL * median_want + 1e-6:
+        failures.append(f"{label}: median position error {res['median_pos_err']!r}, against "
+                        f"{median_want!r}")
+    return failures
+
+
+def phase_global_sfm():
+    """Phase 5: `synthetic_global.run()` at 553 views on the card, first and
+    warm, held to the JAX package's CPU results and to each other."""
+    sm.streaming_top2.launches = 0
+    k2.matmul_rowmin.launches = 0
+    log(f"[sfm] JAX CPU: {JAX_CPU_SFM_VIEWS} views, {JAX_CPU_SFM_ESTIMATED_TRACKS} tracks "
+        f"estimated, median position error {JAX_CPU_SFM_MEDIAN_POSITION_ERR!r}, mean "
+        f"{JAX_CPU_SFM_MEAN_POSITION_ERR!r}; BA rounds {JAX_CPU_SFM_BA_ROUNDS}")
+    failures, runs = [], []
+    for label in ("first", "warm"):
+        counters.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = synthetic_global.run()  # the user's default device: the card
+        wall = time.perf_counter() - t0
+        for line in global_sfm.describe(f"sfm {label}", res):
+            log(line)
+        log(f"[sfm {label}] run() {wall:.3f} s (scene built in {res['t_build_s']:.3f} s); "
+            f"launch counters {counters.snapshot()}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        failures += _sfm_failures(f"sfm {label}", res, JAX_CPU_SFM_ESTIMATED_TRACKS,
+                                  JAX_CPU_SFM_MEDIAN_POSITION_ERR)
+        runs.append(res)
+    failures += _sfm_failures("sfm warm against first", runs[1], runs[0]["estimated_tracks"],
+                              runs[0]["median_pos_err"])
+    log(f"[sfm] K1 launches on this path {sm.streaming_top2.launches}, K2 launches "
+        f"{k2.matmul_rowmin.launches} (no hand-written kernel runs here)")
+    if failures:
+        raise RuntimeError("global SfM checks failed: " + "; ".join(failures))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke.py: no CUDA card; this script needs one")
@@ -633,7 +707,10 @@ def main() -> int:
     # 4. Global pose at full size.
     phase_global_pose(dev)
 
-    # 5. Summary lines.
+    # 5. Global SfM end to end at full size.
+    phase_global_sfm()
+
+    # 6. Summary lines.
     d128 = next(d for d in rowmin["depths"] if d["D"] == 128)
     kernels = [
         dict(

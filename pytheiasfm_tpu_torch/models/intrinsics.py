@@ -30,6 +30,7 @@ __all__ = [
     "camera_to_pixel",
     "pixel_to_camera",
     "make_intrinsics_np",
+    "intrinsics_subset_mask",
     "focal_length",
     "principal_point",
 ]
@@ -90,6 +91,31 @@ def _pinhole_only(model) -> None:
             f"camera model {model.name} is not ported yet (ROADMAP item A1b); "
             "only PINHOLE is"
         )
+
+
+# Parameter slots each `OptimizeIntrinsicsType` bit frees, per model
+# (the JAX package's `_SUBSET_SLOTS`).
+_SUBSET_SLOTS = {
+    CameraIntrinsicsModelType.PINHOLE: {
+        OptimizeIntrinsicsType.FOCAL_LENGTH: (0,),
+        OptimizeIntrinsicsType.ASPECT_RATIO: (1,),
+        OptimizeIntrinsicsType.SKEW: (2,),
+        OptimizeIntrinsicsType.PRINCIPAL_POINTS: (3, 4),
+        OptimizeIntrinsicsType.RADIAL_DISTORTION: (5, 6),
+    },
+}
+
+
+def intrinsics_subset_mask(model: CameraIntrinsicsModelType, flags) -> np.ndarray:
+    """Boolean [MAX_INTRINSICS] mask of the parameters freed by `flags` for
+    this model (parity: GetSubsetFromOptimizeIntrinsicsType, inverted: the
+    reference returns the constant set)."""
+    _pinhole_only(model)
+    mask = np.zeros((MAX_INTRINSICS,), bool)
+    for bit, slots in _SUBSET_SLOTS[CameraIntrinsicsModelType(model)].items():
+        if flags & bit:
+            mask[list(slots)] = True
+    return mask
 
 
 def make_intrinsics_np(

@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's `ops/triangulation.py`
 (`theia/sfm/triangulation/triangulation.{h,cc}`). The functions that two-view
-verification uses are ported: optimal two-view triangulation (epipolar
-correction + DLT) and the cheirality test. The N-view methods port with the
-structure slice.
+verification uses (optimal two-view triangulation: epipolar correction +
+DLT; the cheirality test) and the N-view methods of the track estimator
+(midpoint, the 4x4 eigen-solve, the SVD nullspace, the angle test).
 """
 
 from __future__ import annotations
@@ -19,6 +19,10 @@ __all__ = [
     "triangulate",
     "triangulate_dlt",
     "is_triangulated_point_in_front_of_cameras",
+    "triangulate_midpoint",
+    "triangulate_nview",
+    "triangulate_nview_svd",
+    "sufficient_triangulation_angle",
 ]
 
 
@@ -152,3 +156,91 @@ def is_triangulated_point_in_front_of_cameras(point1, point2, rotation, position
     return (dir2_sq * dir1_pos - dir1_dir2 * dir2_pos > 0) & (
         dir1_dir2 * dir1_pos - dir1_sq * dir2_pos > 0
     )
+
+
+def triangulate_midpoint(origins, directions, mask=None):
+    """Closest point to N rays (masked). origins/directions [.., N, 3].
+
+    Parity: `theia::TriangulateMidpoint` (`triangulation.cc:130-157`):
+    accumulates A = sum(I - d d^T), b = sum((I - d d^T) o_homog) over the
+    rays and solves the 4x4 system. Returns ([.., 4] homogeneous point,
+    success). A singular system gives a non-finite point and success False
+    (no raise, no host sync), as the JAX package's `solve`.
+    """
+    d = directions / torch.linalg.norm(directions, dim=-1, keepdim=True)
+    d4 = torch.cat([d, torch.zeros_like(d[..., :1])], dim=-1)
+    eye = torch.eye(4, dtype=origins.dtype, device=origins.device)
+    A_terms = eye - d4[..., :, None] * d4[..., None, :]
+    b_terms = (A_terms @ _homogeneous(origins)[..., None])[..., 0]
+    if mask is not None:
+        m = mask[..., None, None].to(origins.dtype)
+        A_terms = A_terms * m
+        b_terms = b_terms * m[..., 0]
+    A = torch.sum(A_terms, dim=-3) + 1e-12 * eye
+    b = torch.sum(b_terms, dim=-2)
+    point = torch.linalg.solve_ex(A, b[..., None])[0][..., 0]
+    return point, torch.all(torch.isfinite(point), dim=-1)
+
+
+def triangulate_nview(poses, points, mask=None):
+    """N-view L2-minimization triangulation by a 4x4 symmetric eigen-solve.
+
+    Parity: `theia::TriangulateNView` (`triangulation.cc:200-217`):
+    design = sum_i C_i^T C_i with C_i = P_i - n_i n_i^T P_i, n_i the
+    normalized homogeneous image point; the solution is the eigenvector of
+    the smallest eigenvalue (unit norm, sign arbitrary). poses [.., N, 3, 4],
+    points [.., N, 2].
+    """
+    n = _homogeneous(points)
+    n = n / torch.linalg.norm(n, dim=-1, keepdim=True)
+    proj = n[..., :, None] * torch.sum(n[..., :, None] * poses, dim=-2)[..., None, :]
+    cost = poses - proj  # [.., N, 3, 4]
+    terms = cost.mT @ cost  # [.., N, 4, 4]
+    if mask is not None:
+        terms = terms * mask[..., None, None].to(poses.dtype)
+    _, vecs = _eigh(torch.sum(terms, dim=-3))
+    return vecs[..., :, 0]
+
+
+def triangulate_nview_svd(poses, points, mask=None):
+    """N-view SVD triangulation: the nullspace of the [3N, 4+N] design.
+
+    Parity: `theia::TriangulateNViewSVD` (`triangulation.cc:181-197`). A
+    masked view's rows become unit rows touching only its own scale column,
+    so they add a unit singular value and never win the nullspace. Returns
+    a unit [.., 4] point of arbitrary sign.
+    """
+    batch = poses.shape[:-3]
+    N = poses.shape[-3]
+    dtype, device = poses.dtype, poses.device
+    design = torch.zeros(*batch, 3 * N, 4 + N, dtype=dtype, device=device)
+    p_homog = _homogeneous(points)
+    unit = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=device)
+    for i in range(N):
+        block = -poses[..., i, :, :]
+        col = p_homog[..., i, :]
+        if mask is not None:
+            block = block * mask[..., i, None, None].to(dtype)
+            col = torch.where(mask[..., i, None], col, unit)
+        design[..., 3 * i : 3 * i + 3, 0:4] = block
+        design[..., 3 * i : 3 * i + 3, 4 + i] = col
+    _, _, vt = torch.linalg.svd(design, full_matrices=True)
+    return vt[..., -1, 0:4]
+
+
+def sufficient_triangulation_angle(ray_directions, min_angle_degrees, mask=None):
+    """True where some pair of rays subtends at least the minimum angle.
+
+    Parity: `theia::SufficientTriangulationAngle` (`triangulation.cc:240-`).
+    ray_directions [.., N, 3] unit vectors; masked rays take no part.
+    """
+    cos_min = torch.cos(torch.deg2rad(torch.as_tensor(
+        min_angle_degrees, dtype=ray_directions.dtype, device=ray_directions.device)))
+    dots = ray_directions @ ray_directions.mT
+    one = torch.ones((), dtype=dots.dtype, device=dots.device)
+    if mask is not None:
+        dots = torch.where(mask[..., :, None] & mask[..., None, :], dots, one)
+    N = ray_directions.shape[-2]
+    off_diag = ~torch.eye(N, dtype=torch.bool, device=dots.device)
+    min_cos = torch.amin(torch.where(off_diag, dots, one), dim=(-2, -1))
+    return min_cos <= cos_min

@@ -1,18 +1,21 @@
-"""Synthetic Notre-Dame-scale scene for the global SfM pipeline.
+"""Synthetic Notre-Dame-scale global SfM pipeline.
 
-Counterpart of `build_scene` in the JAX package's
-`pipelines/synthetic_global.py`: a ring of V cameras looking at the origin,
-view-local tracks, and view-graph edges carrying the ground-truth relative
-poses with calibrated rotation and direction noise (the output contract of
-two-view verification, `twoview_info.h:114`). Given one seed both packages
-build the same views, tracks, observations and edges: the same numpy draws
-in the same order, the rotation math in f64 on CPU tensors.
-
-`run` (the whole pipeline on this scene) comes with the estimator's
-`estimate` (ROADMAP item A8); `tools/global_pose.py` drives its pose steps.
+Counterpart of the JAX package's `pipelines/synthetic_global.py`. The
+reference's 1DSfM tables time the global pipeline per phase (Notre Dame,
+553 cameras). `build_scene` synthesizes a problem at that scale: a ring of
+V cameras looking at the origin, view-local tracks, and view-graph edges
+carrying the ground-truth relative poses with calibrated rotation and
+direction noise (the output contract of two-view verification,
+`twoview_info.h:114`). Given one seed both packages build the same views,
+tracks, observations and edges: the same numpy draws in the same order, the
+rotation math in f64 on CPU tensors. `run` drives
+`GlobalReconstructionEstimator.estimate` on it and reports the per-phase
+seconds and the Sim(3)-aligned position accuracy against ground truth.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -23,7 +26,7 @@ from ..ops import rotation as rotops
 from ..sfm.reconstruction import CameraIntrinsicsPrior, Reconstruction
 from ..sfm.view_graph import TwoViewInfo, ViewGraph
 
-__all__ = ["build_scene"]
+__all__ = ["build_scene", "run"]
 
 
 def _t(a):
@@ -149,3 +152,76 @@ def build_scene(
         )
         graph.add_edge(int(v1[e]), int(v2[e]), info)
     return recon, graph, positions
+
+
+def run(V=553, T=50_000, seed=0, estimator_type="global", calibrated=False, device=None,
+        profile=False):
+    """Build the scene and run the global estimator on `device` (None: the
+    CUDA card); returns the phase seconds, the accuracy and the counts (one
+    dict: the JAX package's keys, plus `estimated_tracks`, `ba_rounds` (the
+    estimator's `bundle_adjustment_rounds`) and `stage_seconds` (each stage
+    of `estimate`, host clock ending in a device synchronize)). With
+    `profile`, each stage also runs under `torch.profiler`, and
+    `launches` / `device_seconds` give its kernel launches and their device
+    time (the profiler's own cost is then in the seconds).
+
+    `calibrated=True` (constant intrinsics, XYZW tracks) sends bundle
+    adjustment to the dense Schur, which is not ported (ROADMAP item A7).
+    The default keeps the reference-default free focal+radial intrinsics
+    and XYZW_MANIFOLD tracks. `estimator_type` is accepted for parity and
+    the estimator is always the global one, as in the JAX package.
+    """
+    from ..ba.lm import OptimizeIntrinsicsType, TrackParametrizationType
+    from ..sfm.estimator_options import (
+        ReconstructionEstimatorOptions,
+        ReconstructionEstimatorType,
+    )
+    from ..sfm.reconstruction_estimator import create_reconstruction_estimator
+    from ..transforms.alignment import align_point_clouds_umeyama
+    from ..utils.timing import StageTimer
+
+    t0 = time.perf_counter()
+    recon, graph, gt_positions = build_scene(V=V, T=T, seed=seed)
+    t_build = time.perf_counter() - t0
+
+    options = ReconstructionEstimatorOptions(
+        reconstruction_estimator_type=ReconstructionEstimatorType.GLOBAL,
+        rng_seed=seed,
+    )
+    if calibrated:
+        options.intrinsics_to_optimize = OptimizeIntrinsicsType.NONE
+        options.track_parametrization_type = TrackParametrizationType.XYZW
+    estimator = create_reconstruction_estimator(options, device=device)
+    timer = StageTimer(estimator.device, profile)
+    t0 = time.perf_counter()
+    summary = estimator.estimate(graph, recon, timer)
+    t_total = time.perf_counter() - t0
+
+    est_ids = [v for v in range(recon.num_views()) if recon.view_estimated[v]]
+    est = recon.view_extrinsics[est_ids, :3]
+    gt = gt_positions[est_ids]
+    Ra, ta, s = align_point_clouds_umeyama(_t(est), _t(gt))
+    aligned = float(s) * est @ Ra.numpy().T + ta.numpy()
+    err = np.linalg.norm(aligned - gt, axis=-1)
+    return dict(
+        success=bool(summary.success),
+        views=len(est_ids),
+        views_total=V,
+        tracks=recon.num_tracks(),
+        estimated_tracks=len(summary.estimated_tracks),
+        observations=recon.num_observations(),
+        edges=graph.num_edges(),
+        t_build_s=t_build,
+        t_rotation_s=summary.rotation_estimation_time,
+        t_position_s=summary.position_estimation_time,
+        t_pose_total_s=summary.pose_estimation_time,
+        t_triangulation_s=summary.triangulation_time,
+        t_ba_s=summary.bundle_adjustment_time,
+        t_total_s=t_total,
+        median_pos_err=float(np.median(err)),
+        mean_pos_err=float(np.mean(err)),
+        ba_rounds=estimator.bundle_adjustment_rounds,
+        stage_seconds=timer.seconds,
+        launches=timer.launches,
+        device_seconds=timer.device_seconds,
+    )

@@ -3,7 +3,6 @@
 Counterpart of the JAX package's `sfm/estimator_options.py`
 (`theia/sfm/reconstruction_estimator_options.h:100-352` and the summary of
 `reconstruction_estimator.h:50-63`), with the same field names and defaults.
-`set_bundle_adjustment_options` comes with the BA port (ROADMAP item A5).
 """
 
 from __future__ import annotations
@@ -11,7 +10,11 @@ from __future__ import annotations
 import dataclasses
 import enum
 
-from ..ba.lm import OptimizeIntrinsicsType, TrackParametrizationType
+from ..ba.lm import (
+    BundleAdjustmentOptions,
+    OptimizeIntrinsicsType,
+    TrackParametrizationType,
+)
 from ..ba.losses import LossFunctionType
 from ..ransac.engine import RansacParameters
 from .track_estimator import TriangulationMethodType
@@ -24,6 +27,7 @@ __all__ = [
     "PnPType",
     "ReconstructionEstimatorOptions",
     "ReconstructionEstimatorSummary",
+    "set_bundle_adjustment_options",
     "set_ransac_parameters",
 ]
 
@@ -169,6 +173,22 @@ class ReconstructionEstimatorSummary:
     bundle_adjustment_time: float = 0.0
     total_time: float = 0.0
     message: str = ""
+
+
+def set_bundle_adjustment_options(
+    options: ReconstructionEstimatorOptions, num_views: int
+) -> BundleAdjustmentOptions:
+    """Parity: `theia::SetBundleAdjustmentOptions`
+    (`reconstruction_estimator_utils.cc`)."""
+    return BundleAdjustmentOptions(
+        loss_function_type=options.bundle_adjustment_loss_function_type,
+        robust_loss_width=options.bundle_adjustment_robust_loss_width,
+        max_num_iterations=options.max_num_iterations,
+        linear_solver_iterations=options.linear_solver_iterations,
+        track_parametrization_type=options.track_parametrization_type,
+        intrinsics_to_optimize=options.intrinsics_to_optimize,
+        mesh=options.mesh,
+    )
 
 
 def set_ransac_parameters(

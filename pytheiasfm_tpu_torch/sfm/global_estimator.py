@@ -1,36 +1,221 @@
 """The global SfM pipeline.
 
 Counterpart of the JAX package's `sfm/global_estimator.py`
-(`theia/sfm/global_reconstruction_estimator.{h,cc}`). Ported so far: the
-initial view-graph filter and the pairwise-translation refinement, the
-estimator's own steps 1 and 5; `tools/global_pose.py` runs steps 1-7 in
-`estimate`'s order. `estimate`, the structure and the bundle-adjustment
-loop come with ROADMAP items A4-A8.
+(`theia/sfm/global_reconstruction_estimator.{h,cc}`, steps 1-9 at
+`global_reconstruction_estimator.cc:142-271`). The host orchestrates; every
+numeric stage runs on the estimator's device: rotation averaging (L1 +
+IRLS), the orientation and 1DSfM filters, pairwise translations, LUD
+positions, track triangulation, iterative-Schur bundle adjustment with
+outlier removal and retriangulation.
+
+Steps 1-7 (`_estimate_poses`) are also what `tools/global_pose.py` runs and
+times stage by stage. Not ported, each raising `NotImplementedError` that
+names its ROADMAP item: the rotation estimators other than ROBUST_L1L2 and
+the position estimators other than LUD (D1), the maximal rigid subgraph
+filter (D1), a device mesh (G1); through bundle adjustment, the dense Schur
+of the calibrated configuration (A7).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from .. import default_device
+from ..ba.entry import bundle_adjust_partial_reconstruction, bundle_adjust_reconstruction
+from ..global_pose import filters
+from ..global_pose import position_estimator as pos_est
+from ..global_pose import rotation_estimator as rot_est
 from ..global_pose.pairwise_translation import (
     optimize_relative_positions_with_known_rotations,
 )
 from ..models import camera as cam
-from .estimator_options import ReconstructionEstimatorOptions
+from ..utils.log import logger
+from ..utils.timing import StageTimer
+from .estimator_options import (
+    ReconstructionEstimatorOptions,
+    ReconstructionEstimatorSummary,
+    set_bundle_adjustment_options,
+)
+from .reconstruction_estimator_utils import (
+    num_estimated_tracks,
+    num_estimated_views,
+    set_outlier_tracks_to_unestimated,
+    set_reconstruction_from_estimated_poses,
+    set_underconstrained_tracks_to_unestimated,
+    set_underconstrained_views_to_unestimated,
+)
+from .select_tracks import select_good_tracks_for_bundle_adjustment
+from .track_estimator import TrackEstimatorOptions, estimate_all_tracks, estimate_tracks
 
-__all__ = ["GlobalReconstructionEstimator"]
+__all__ = ["GlobalReconstructionEstimator", "POSE_STAGES"]
+
+# The stages of steps 1-7 as `_estimate_poses` times them (step 2, the
+# intrinsics from the priors, is `calibration_time`).
+POSE_STAGES = (
+    "initial filter",
+    "MST + rotations",
+    "orientation filter",
+    "pairwise translations",
+    "1DSfM",
+    "positions",
+)
 
 
 class GlobalReconstructionEstimator:
     """Parity: `theia::GlobalReconstructionEstimator`
     (`global_reconstruction_estimator.h:71-90`). `device`: where the
-    numeric stages run (None: the CUDA card)."""
+    numeric stages run (None: the CUDA card). After `estimate`,
+    `bundle_adjustment_rounds` holds one dict a BA round: LM and PCG
+    iterations, initial and final cost, outliers removed, tracks retriangulated, and
+    the seconds of the solve and of the outlier filter."""
 
     def __init__(self, options: ReconstructionEstimatorOptions | None = None, device=None):
         self.options = options or ReconstructionEstimatorOptions()
         self.device = default_device(device)
+        self.bundle_adjustment_rounds: list[dict] = []
+        self.calibration_time = 0.0
+
+    # ------------------------------------------------------------- pipeline
+
+    def estimate(self, view_graph, recon,
+                 timer: StageTimer | None = None) -> ReconstructionEstimatorSummary:
+        """Steps of `GlobalReconstructionEstimator::Estimate`
+        (`global_reconstruction_estimator.cc:142`):
+        1 filter the initial view graph   2 intrinsics from the priors
+        3 global rotations                4 filter rotations
+        5 pairwise translations           6 1DSfM translation filter
+        7 positions                       8 triangulate
+        9 BA + outlier removal + retriangulation rounds
+
+        `timer` times (and, when it profiles, profiles) the stages: those of
+        `POSE_STAGES`, "triangulation" and "bundle adjustment".
+        """
+        timer = timer or StageTimer(self.device)
+        opt = self.options
+        if opt.mesh is not None:
+            raise NotImplementedError("a device mesh is not ported yet (ROADMAP item G1)")
+        summary = ReconstructionEstimatorSummary()
+        t_start = time.perf_counter()
+        poses = self._estimate_poses(view_graph, recon, timer)
+        if poses is None:
+            summary.message = "insufficient view pairs"
+            logger.warning("global SfM aborted: insufficient view pairs")
+            return summary
+        summary.camera_intrinsics_calibration_time = self.calibration_time
+        summary.rotation_estimation_time = timer.seconds["MST + rotations"]
+        summary.position_estimation_time = timer.seconds["positions"]
+        summary.pose_estimation_time = sum(timer.seconds[k] for k in POSE_STAGES[1:])
+        logger.info("pose estimation: %d positions in %.3fs", len(poses[1]),
+                    summary.pose_estimation_time)
+
+        # 8. Triangulate all tracks (.cc:456-472).
+        with timer("triangulation"):
+            self._estimate_structure(recon)
+        summary.triangulation_time = timer.seconds["triangulation"]
+        logger.info("triangulation: %d estimated tracks in %.3fs",
+                    num_estimated_tracks(recon), summary.triangulation_time)
+        set_underconstrained_tracks_to_unestimated(recon)
+        set_underconstrained_views_to_unestimated(recon)
+
+        # 9. Bundle adjustment with retriangulation rounds (.cc:233-271).
+        with timer("bundle adjustment"):
+            self._bundle_adjustment_loop(recon)
+        summary.bundle_adjustment_time = timer.seconds["bundle adjustment"]
+        logger.info("bundle adjustment: %.3fs", summary.bundle_adjustment_time)
+
+        summary.estimated_views = {int(v) for v in np.nonzero(recon.view_estimated)[0]}
+        summary.estimated_tracks = {int(t) for t in np.nonzero(recon.track_estimated)[0]}
+        summary.success = num_estimated_views(recon) >= 2 and num_estimated_tracks(recon) > 0
+        summary.total_time = time.perf_counter() - t_start
+        summary.message = (f"estimated {num_estimated_views(recon)} views, "
+                           f"{num_estimated_tracks(recon)} tracks")
+        logger.info("global SfM: %s in %.3fs", summary.message, summary.total_time)
+        return summary
+
+    def _estimate_poses(self, view_graph, recon, stage: StageTimer | None = None,
+                        edges: dict | None = None, removed: dict | None = None):
+        """Steps 1-7 on `view_graph` and `recon` (both changed in place), each
+        stage of `POSE_STAGES` timed by `stage`; the estimated poses are
+        written into `recon`. `edges` gets the edge set after each filter
+        stage, `removed` the count of edges each filter removed. Returns
+        (orientations, positions), or None when step 1 leaves no edge."""
+        opt, device = self.options, self.device
+        stage = stage or StageTimer(device)
+        edges = {} if edges is None else edges
+        removed = {} if removed is None else removed
+
+        # 1. Filter the initial view graph (min inliers, largest CC).
+        with stage("initial filter"):
+            before = view_graph.num_edges()
+            ok = self._filter_initial_view_graph(view_graph, recon)
+            removed["initial filter"] = before - view_graph.num_edges()
+            edges["initial filter"] = frozenset(view_graph.edges)
+        if not ok:
+            return None
+
+        # 2. Calibrate any uncalibrated cameras (.cc:166).
+        t0 = time.perf_counter()
+        recon.set_camera_intrinsics_from_priors()
+        self.calibration_time = time.perf_counter() - t0
+
+        # 3. Global rotations (.cc:327-371).
+        with stage("MST + rotations"):
+            orientations = rot_est.estimate_rotations(
+                view_graph, int(opt.global_rotation_estimator_type), mesh=opt.mesh,
+                device=device,
+            )
+
+        # 4. Filter relative rotations that disagree (.cc:375-381).
+        with stage("orientation filter"):
+            removed["orientation filter"] = filters.filter_view_pairs_from_orientation(
+                view_graph, orientations, opt.rotation_filtering_max_difference_degrees,
+                device=device,
+            )
+            if opt.extract_maximal_rigid_subgraph:
+                raise NotImplementedError(
+                    "extract_maximally_parallel_rigid_subgraph is not ported yet "
+                    "(ROADMAP item D1)"
+                )
+            for v in view_graph.remove_disconnected_view_pairs():
+                orientations.pop(v, None)
+            edges["orientation filter"] = frozenset(view_graph.edges)
+
+        # 5. Refine relative translations with known rotations (.cc:195-202).
+        with stage("pairwise translations"):
+            if opt.refine_relative_translations_after_rotation_estimation:
+                self._optimize_pairwise_translations(view_graph, orientations, recon)
+
+        # 6. 1DSfM relative-translation filtering (.cc:404).
+        with stage("1DSfM"):
+            removed["1DSfM"] = 0
+            if opt.filter_relative_translations_with_1dsfm:
+                removed["1DSfM"] = filters.filter_view_pairs_from_relative_translation(
+                    view_graph,
+                    orientations,
+                    num_iterations=opt.translation_filtering_num_iterations,
+                    translation_projection_tolerance=(
+                        opt.translation_filtering_projection_tolerance
+                    ),
+                    rng=np.random.default_rng(opt.rng_seed),
+                    device=device,
+                )
+                for v in view_graph.remove_disconnected_view_pairs():
+                    orientations.pop(v, None)
+            edges["1DSfM"] = frozenset(view_graph.edges)
+
+        # 7. Global positions (.cc:418-452).
+        with stage("positions"):
+            positions = pos_est.estimate_positions(
+                view_graph, orientations, int(opt.global_position_estimator_type),
+                mesh=opt.mesh, device=device,
+            )
+        set_reconstruction_from_estimated_poses(orientations, positions, recon)
+        return orientations, positions
+
+    # ----------------------------------------------------------- sub-stages
 
     def _filter_initial_view_graph(self, view_graph, recon) -> bool:
         """Parity: `FilterInitialViewGraph`
@@ -113,3 +298,70 @@ class GlobalReconstructionEstimator:
         for e, (i, j) in enumerate(edges):
             if ok[e]:
                 view_graph.get_edge(i, j).position_2 = refined[e]
+
+    def _estimate_structure(self, recon, track_ids=None):
+        """Parity: `EstimateStructure`
+        (`global_reconstruction_estimator.cc:456-472`)."""
+        opt = self.options
+        te_options = TrackEstimatorOptions(
+            max_acceptable_reprojection_error_pixels=(
+                opt.triangulation_max_reprojection_error_in_pixels
+            ),
+            min_triangulation_angle_degrees=opt.min_triangulation_angle_degrees,
+            bundle_adjustment=opt.bundle_adjust_tracks,
+            triangulation_method=opt.triangulation_method,
+            mesh=opt.mesh,
+        )
+        if track_ids is None:
+            return estimate_all_tracks(recon, te_options, device=self.device)
+        return estimate_tracks(recon, track_ids, te_options, device=self.device)
+
+    def _bundle_adjustment_loop(self, recon):
+        """Parity: the retriangulation + BA loop
+        (`global_reconstruction_estimator.cc:233-271,480-498`): BA, drop the
+        outlier and under-constrained tracks, retriangulate the unestimated
+        tracks, up to `num_retriangulation_iterations` + 1 rounds; stops
+        early when a round drops no outlier."""
+        opt, device = self.options, self.device
+        ba_options = set_bundle_adjustment_options(opt, num_estimated_views(recon))
+        self.bundle_adjustment_rounds = []
+        for it in range(opt.num_retriangulation_iterations + 1):
+            t0 = time.perf_counter()
+            if opt.subsample_tracks_for_bundle_adjustment:
+                tracks = select_good_tracks_for_bundle_adjustment(
+                    recon,
+                    long_track_length_threshold=(
+                        opt.track_subset_selection_long_track_length_threshold
+                    ),
+                    image_grid_cell_size_pixels=opt.track_selection_image_grid_cell_size_pixels,
+                    min_num_optimized_tracks_per_view=opt.min_num_optimized_tracks_per_view,
+                    device=device,
+                )
+                views = [int(v) for v in np.nonzero(recon.view_estimated)[0]]
+                ba_summary = bundle_adjust_partial_reconstruction(
+                    ba_options, views, tracks, recon, device=device
+                )
+            else:
+                ba_summary = bundle_adjust_reconstruction(ba_options, recon, device=device)
+            t1 = time.perf_counter()
+            num_outliers = set_outlier_tracks_to_unestimated(
+                recon, opt.max_reprojection_error_in_pixels,
+                opt.min_triangulation_angle_degrees, device=device,
+            )
+            set_underconstrained_tracks_to_unestimated(recon)
+            t2 = time.perf_counter()
+            rnd = dict(round=it, iterations=int(ba_summary.num_iterations),
+                       pcg_iterations=ba_summary.num_linear_solver_iterations,
+                       initial_cost=ba_summary.initial_cost, final_cost=ba_summary.final_cost,
+                       outliers=num_outliers, retriangulated=0, solve_s=t1 - t0,
+                       filter_s=t2 - t1)
+            self.bundle_adjustment_rounds.append(rnd)
+            logger.info("BA round %d: %d LM iterations, cost %.4g -> %.4g, %d outliers "
+                        "(solve %.2fs, filter %.2fs)", it, rnd["iterations"],
+                        rnd["initial_cost"], rnd["final_cost"], num_outliers, t1 - t0, t2 - t1)
+            if it == opt.num_retriangulation_iterations or num_outliers == 0:
+                break
+            # Retriangulate the dropped tracks.
+            unest = np.nonzero(~recon.track_estimated)[0]
+            rnd["retriangulated"] = len(unest)
+            self._estimate_structure(recon, unest)

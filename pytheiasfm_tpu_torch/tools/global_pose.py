@@ -2,10 +2,9 @@
 
     python -m pytheiasfm_tpu_torch.tools.global_pose [--profile]
 
-`run_global_pose` runs the steps of `GlobalReconstructionEstimator.estimate`
-(the JAX package's `sfm/global_estimator.py:67-166`) in its order, with the
-same options and calls, until the estimator's `estimate` is ported
-(ROADMAP item A8):
+`run_global_pose` runs steps 1-7 of `GlobalReconstructionEstimator.estimate`
+(the JAX package's `sfm/global_estimator.py:67-166`) through the
+estimator's own `_estimate_poses`, the code `estimate` runs:
 
   1. filter the initial view graph (min inliers, largest component);
   2. set the camera intrinsics from the priors;
@@ -29,27 +28,22 @@ card twice (a first and a warm run), printing the stage seconds; with
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import subprocess
-import time
 
 import numpy as np
 import torch
 
 from .. import default_device
-from ..global_pose import filters
-from ..global_pose import position_estimator as pos_est
-from ..global_pose import rotation_estimator as rot_est
 from ..ops import rotation as rotops
 from ..ops.rotation_np import (
     angle_axis_to_rotation_matrix_np,
     rotation_matrix_to_angle_axis_np,
 )
 from ..sfm.estimator_options import ReconstructionEstimatorOptions
-from ..sfm.global_estimator import GlobalReconstructionEstimator
-from ..sfm.reconstruction_estimator_utils import set_reconstruction_from_estimated_poses
+from ..sfm.global_estimator import POSE_STAGES, GlobalReconstructionEstimator
 from ..transforms.alignment import align_point_clouds_umeyama, sim3_transform_points
+from ..utils.timing import StageTimer
 
 __all__ = [
     "STAGES",
@@ -59,14 +53,7 @@ __all__ = [
     "ground_truth_errors",
 ]
 
-STAGES = (
-    "initial filter",
-    "MST + rotations",
-    "orientation filter",
-    "pairwise translations",
-    "1DSfM",
-    "positions",
-)
+STAGES = POSE_STAGES
 
 
 @dataclasses.dataclass
@@ -87,134 +74,21 @@ class GlobalPoseResult:
     device_seconds: dict = dataclasses.field(default_factory=dict)
 
 
-class _Stages:
-    """Times each stage by host clock, synchronizing the device before and
-    after; with `profile`, counts each stage's kernel launches and device
-    time by `torch.profiler`."""
-
-    def __init__(self, device, profile: bool):
-        self.device = device
-        self.profile = profile
-        self.seconds: dict[str, float] = {}
-        self.launches: dict[str, int] = {}
-        self.device_seconds: dict[str, float] = {}
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @contextlib.contextmanager
-    def __call__(self, name):
-        self._sync()
-        prof = None
-        if self.profile:
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
-            ])
-            prof.__enter__()
-        t0 = time.perf_counter()
-        try:
-            yield
-            self._sync()
-        finally:
-            self.seconds[name] = time.perf_counter() - t0
-            if prof is not None:
-                prof.__exit__(None, None, None)
-                kernels = [
-                    e for e in prof.profiler.kineto_results.events()
-                    if e.device_type() == torch.autograd.DeviceType.CUDA
-                ]
-                self.launches[name] = len(kernels)
-                self.device_seconds[name] = sum(e.duration_ns() for e in kernels) * 1e-9
-
-
-def _edge_set(view_graph):
-    return frozenset(view_graph.edges)
-
-
 def run_global_pose(
     view_graph, recon, options: ReconstructionEstimatorOptions | None = None,
     device=None, profile: bool = False,
 ) -> GlobalPoseResult:
     """Steps 1-7 on `view_graph` and `recon` (both changed in place, as
-    `estimate` changes them). `device`: None means the CUDA card."""
+    `estimate` changes them), through the estimator's own
+    `_estimate_poses`. `device`: None means the CUDA card."""
     device = default_device(device)
-    opt = options or ReconstructionEstimatorOptions()
-    estimator = GlobalReconstructionEstimator(opt, device=device)
-    stage = _Stages(device, profile)
+    estimator = GlobalReconstructionEstimator(options, device=device)
+    stage = StageTimer(device, profile)
     edges, removed = {}, {}
-
-    def result(success, orientations=None, positions=None):
-        return GlobalPoseResult(
-            success, orientations or {}, positions or {}, stage.seconds, edges, removed,
-            stage.launches, stage.device_seconds,
-        )
-
-    # 1. Filter the initial view graph (min inliers, largest CC).
-    with stage("initial filter"):
-        before = view_graph.num_edges()
-        ok = estimator._filter_initial_view_graph(view_graph, recon)
-        removed["initial filter"] = before - view_graph.num_edges()
-        edges["initial filter"] = _edge_set(view_graph)
-    if not ok:
-        return result(False)
-
-    # 2. Calibrate any uncalibrated cameras.
-    recon.set_camera_intrinsics_from_priors()
-
-    # 3. Global rotations.
-    with stage("MST + rotations"):
-        orientations = rot_est.estimate_rotations(
-            view_graph, int(opt.global_rotation_estimator_type), mesh=opt.mesh,
-            device=device,
-        )
-
-    # 4. Filter relative rotations that disagree.
-    with stage("orientation filter"):
-        removed["orientation filter"] = filters.filter_view_pairs_from_orientation(
-            view_graph, orientations, opt.rotation_filtering_max_difference_degrees,
-            device=device,
-        )
-        if opt.extract_maximal_rigid_subgraph:
-            raise NotImplementedError(
-                "extract_maximally_parallel_rigid_subgraph is not ported yet "
-                "(ROADMAP item D1)"
-            )
-        for v in view_graph.remove_disconnected_view_pairs():
-            orientations.pop(v, None)
-        edges["orientation filter"] = _edge_set(view_graph)
-
-    # 5. Refine relative translations with known rotations.
-    with stage("pairwise translations"):
-        if opt.refine_relative_translations_after_rotation_estimation:
-            estimator._optimize_pairwise_translations(view_graph, orientations, recon)
-
-    # 6. 1DSfM relative-translation filtering.
-    with stage("1DSfM"):
-        removed["1DSfM"] = 0
-        if opt.filter_relative_translations_with_1dsfm:
-            removed["1DSfM"] = filters.filter_view_pairs_from_relative_translation(
-                view_graph,
-                orientations,
-                num_iterations=opt.translation_filtering_num_iterations,
-                translation_projection_tolerance=(
-                    opt.translation_filtering_projection_tolerance
-                ),
-                rng=np.random.default_rng(opt.rng_seed),
-                device=device,
-            )
-            for v in view_graph.remove_disconnected_view_pairs():
-                orientations.pop(v, None)
-        edges["1DSfM"] = _edge_set(view_graph)
-
-    # 7. Global positions.
-    with stage("positions"):
-        positions = pos_est.estimate_positions(
-            view_graph, orientations, int(opt.global_position_estimator_type),
-            mesh=opt.mesh, device=device,
-        )
-    set_reconstruction_from_estimated_poses(orientations, positions, recon)
-    return result(True, orientations, positions)
+    poses = estimator._estimate_poses(view_graph, recon, stage, edges, removed)
+    orientations, positions = poses if poses is not None else ({}, {})
+    return GlobalPoseResult(poses is not None, orientations, positions, stage.seconds, edges,
+                            removed, stage.launches, stage.device_seconds)
 
 
 # The share of a contaminated scene's edges that `contaminate` corrupts,

@@ -1,1 +1,1 @@
-"""Point-cloud alignment (`alignment.py`)."""
+"""Point-cloud and reconstruction alignment (`alignment.py`)."""

@@ -1,1 +1,1 @@
-"""Host utilities: logging and the CUDA kernel build."""
+"""Host utilities: logging, timing, launch counters, synthetic scenes and the CUDA kernel build."""

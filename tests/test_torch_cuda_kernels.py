@@ -15,7 +15,12 @@ The triangulation's chunked `eigh` is held here too, above the batch size
 that cuSOLVER takes in one call, and steps 1-7 of global SfM (no
 hand-written kernel; eager PyTorch in f64) on a small contaminated scene,
 card against CPU: the same edge sets, orientations within 1e-7 rad,
-positions within 1e-7 x the median radius.
+positions within 1e-7 x the median radius. The main path's iterative-Schur
+bundle adjustment and `estimate` (eager PyTorch, no hand-written kernel):
+BA at the reference-default options on a small reconstruction, card against
+CPU, final cost to 1e-4 relative (f32, sums in another order); `estimate`
+on the 8-view scene of `tests/test_global_estimator.py`, the same estimated
+views on the card as on the CPU.
 """
 
 import copy
@@ -32,7 +37,11 @@ from pytheiasfm_tpu_torch.ops.rotation_np import (
     angle_axis_to_rotation_matrix_np,
     rotation_matrix_to_angle_axis_np,
 )
+from pytheiasfm_tpu_torch.ba import entry as ba_entry
 from pytheiasfm_tpu_torch.pipelines.synthetic_global import build_scene
+from pytheiasfm_tpu_torch.sfm import estimator_options
+from pytheiasfm_tpu_torch.sfm.global_estimator import GlobalReconstructionEstimator
+from pytheiasfm_tpu_torch.utils import synthetic
 from pytheiasfm_tpu_torch.tools import exp_matcher_roofline as k2
 from pytheiasfm_tpu_torch.tools import global_pose
 
@@ -411,3 +420,34 @@ def test_global_pose_steps_on_the_card_match_the_cpu(cuda):
     p_cpu = np.stack([cpu.positions[v] for v in ids])
     radius = np.median(np.linalg.norm(p_cpu - p_cpu.mean(0), axis=-1))
     assert np.linalg.norm(p_card - p_cpu, axis=-1).max() <= 1e-7 * radius
+
+
+def test_bundle_adjustment_and_estimate_on_the_card_match_the_cpu(cuda):
+    """The main path's BA and `estimate`, card against CPU."""
+    recon = synthetic.random_reconstruction(num_views=8, num_tracks=150, seed=5, pixel_noise=0.3)
+    gen = np.random.default_rng(9)
+    recon.view_extrinsics[1:, :3] += gen.normal(size=(7, 3)) * 0.02
+    recon.points[:, :3] += gen.normal(size=(150, 3)) * 0.02
+    recon.intrinsics[:, 0] *= 1.01
+    recon.view_group[:] = 0
+    options = estimator_options.set_bundle_adjustment_options(
+        estimator_options.ReconstructionEstimatorOptions(), 8)
+    summaries = []
+    for device in (cuda, "cpu"):
+        r = copy.deepcopy(recon)
+        summaries.append(ba_entry.bundle_adjust_reconstruction(options, r, device=device))
+    card, cpu = summaries
+    assert card.success and cpu.success and card.final_cost < 0.05 * card.initial_cost
+    assert abs(card.final_cost - cpu.final_cost) <= 1e-4 * cpu.final_cost
+
+    scene, gt_ext, _ = synthetic.generate_scene(
+        synthetic.SyntheticSceneOptions(num_views=8, num_tracks=150, pixel_noise=0.3, seed=7))
+    graph = synthetic.add_view_graph_edges(scene, gt_ext, min_shared_tracks=20,
+                                           rotation_noise_degrees=1.0,
+                                           position_noise_degrees=1.0, seed=3)
+    opt = estimator_options.ReconstructionEstimatorOptions(min_num_two_view_inliers=20)
+    runs = [GlobalReconstructionEstimator(opt, device=device).estimate(
+        copy.deepcopy(graph), copy.deepcopy(scene)) for device in (cuda, "cpu")]
+    assert runs[0].success and runs[1].success
+    assert runs[0].estimated_views == runs[1].estimated_views
+    assert len(runs[0].estimated_views) == 8
