@@ -49,7 +49,17 @@ Phases, each printed (flushed) as it ends:
      estimated track count and the median position error after Umeyama
      against the JAX package's CPU results, and to the first run; K1's and
      K2's launch counts on this path are printed (no hand-written kernel);
-  6. print a {"kernels": [...]} line, the card's name and power limit, and
+  6. the calibrated configuration: `synthetic_global.run(calibrated=True)`
+     on the card at the same size (constant intrinsics, XYZW tracks, so
+     bundle adjustment by the dense Schur), first and warm, printed and held
+     as in phase 5 against the JAX package's CPU results for it (every BA
+     round must take the dense Schur); then, on the warm run's
+     reconstruction, the flat kernel (`bundle_adjust_reconstruction` with
+     INVERSE_DEPTH tracks: `success`, a cost that does not rise) and
+     `compute_reconstruction_covariance` of two views (f64, the
+     selected-block PCG: finite positive-definite blocks), their seconds
+     printed; K1's and K2's launch counts on this path are printed;
+  7. print a {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 It imports nothing of JAX. Without a CUDA card, or outside the repository,
@@ -75,6 +85,8 @@ from pytheiasfm_tpu_torch.matching import (
     streaming_matcher as sm,
 )
 from pytheiasfm_tpu_torch import native
+from pytheiasfm_tpu_torch.ba import entry as ba_entry
+from pytheiasfm_tpu_torch.ba.lm import BundleAdjustmentOptions, TrackParametrizationType
 from pytheiasfm_tpu_torch.global_pose import filters as gp_filters
 from pytheiasfm_tpu_torch.matching.guided_epipolar import guided_epipolar_match
 from pytheiasfm_tpu_torch.ops import rotation as rotops
@@ -166,6 +178,19 @@ JAX_CPU_SFM_MEAN_POSITION_ERR = 0.003043442944584052
 JAX_CPU_SFM_BA_ROUNDS = "round 0: 5 LM iterations, cost 5.646e+04 -> 5.153e+04, 0 outliers"
 SFM_TRACK_TOL_REL = 0.005
 SFM_MEDIAN_TOL_REL = 0.02
+
+# The calibrated configuration (phase 6): the JAX package's own results on
+# the CPU for `synthetic_global.run(calibrated=True)` at the same size,
+# recorded by
+#   python -m pytest tests/test_torch_global_estimator.py -m slow -s -k calibrated
+# (JAX 0.9 on the host CPU of an H100 machine; no TPU number), held by the
+# bars of phase 5.
+JAX_CPU_CAL_ESTIMATED_TRACKS = 49994
+JAX_CPU_CAL_MEDIAN_POSITION_ERR = 0.002933223924352544
+JAX_CPU_CAL_MEAN_POSITION_ERR = 0.0030832037129150743
+JAX_CPU_CAL_BA_ROUNDS = "round 0: 4 LM iterations, cost 5.646e+04 -> 5.153e+04, 0 outliers"
+# The views whose covariance phase 6 computes (views 0 and 1 fix the gauge).
+COVARIANCE_VIEWS = [100, 300]
 
 
 def log(*args):
@@ -674,6 +699,70 @@ def phase_global_sfm():
         raise RuntimeError("global SfM checks failed: " + "; ".join(failures))
 
 
+def phase_calibrated_sfm():
+    """Phase 6: `synthetic_global.run(calibrated=True)` at 553 views on the
+    card, first and warm, held to the JAX package's CPU results and to each
+    other; then the flat kernel and the covariance on its reconstruction."""
+    sm.streaming_top2.launches = 0
+    k2.matmul_rowmin.launches = 0
+    log(f"[cal] JAX CPU: {JAX_CPU_SFM_VIEWS} views, {JAX_CPU_CAL_ESTIMATED_TRACKS} tracks "
+        f"estimated, median position error {JAX_CPU_CAL_MEDIAN_POSITION_ERR!r}, mean "
+        f"{JAX_CPU_CAL_MEAN_POSITION_ERR!r}; BA rounds {JAX_CPU_CAL_BA_ROUNDS}")
+    failures, runs = [], []
+    for label in ("first", "warm"):
+        counters.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = synthetic_global.run(calibrated=True)  # the user's default device: the card
+        wall = time.perf_counter() - t0
+        for line in global_sfm.describe(f"cal {label}", res):
+            log(line)
+        log(f"[cal {label}] run() {wall:.3f} s (scene built in {res['t_build_s']:.3f} s); "
+            f"launch counters {counters.snapshot()}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        failures += _sfm_failures(f"cal {label}", res, JAX_CPU_CAL_ESTIMATED_TRACKS,
+                                  JAX_CPU_CAL_MEDIAN_POSITION_ERR)
+        solvers = {r["solver"] for r in res["ba_rounds"]}
+        if solvers != {"dense"}:
+            failures.append(f"cal {label}: BA took {sorted(solvers)}, not the dense Schur")
+        runs.append(res)
+    failures += _sfm_failures("cal warm against first", runs[1], runs[0]["estimated_tracks"],
+                              runs[0]["median_pos_err"])
+    log(f"[cal] K1 launches on this path {sm.streaming_top2.launches}, K2 launches "
+        f"{k2.matmul_rowmin.launches} (no hand-written kernel runs here)")
+    recon = runs[1]["reconstruction"]
+    del runs
+
+    # The flat kernel: INVERSE_DEPTH tracks on the estimated reconstruction.
+    options = BundleAdjustmentOptions(
+        track_parametrization_type=TrackParametrizationType.INVERSE_DEPTH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = ba_entry.bundle_adjust_reconstruction(options, recon)
+    torch.cuda.synchronize()
+    log(f"[cal] flat kernel, INVERSE_DEPTH: {time.perf_counter() - t0:.3f} s, "
+        f"{s.linear_solver} kernel, {s.num_iterations} LM iterations "
+        f"({s.num_linear_solver_iterations} PCG steps), cost {s.initial_cost!r} -> "
+        f"{s.final_cost!r}, success {s.success}")
+    if not (s.success and s.linear_solver == "flat" and s.final_cost <= s.initial_cost):
+        failures.append("flat kernel: no success, another kernel, or a rising cost")
+
+    # The selected-block covariance of two views (f64).
+    t0 = time.perf_counter()
+    cams, _, vf = ba_entry.compute_reconstruction_covariance(
+        BundleAdjustmentOptions(), recon, constant_views=(0, 1), view_ids=COVARIANCE_VIEWS)
+    torch.cuda.synchronize()
+    evals = [np.linalg.eigvalsh(c) for c in cams.values()]
+    log(f"[cal] covariance of views {COVARIANCE_VIEWS} (f64, selected-block PCG): "
+        f"{time.perf_counter() - t0:.3f} s, variance factor {vf!r}, eigenvalues "
+        + "; ".join(f"{v}: {e.min():.3e}..{e.max():.3e}" for v, e in zip(cams, evals)))
+    if sorted(cams) != COVARIANCE_VIEWS or not np.isfinite(vf) or not vf > 0 or not all(
+            np.all(np.isfinite(e)) and e.min() > 0 for e in evals):
+        failures.append("covariance: missing, non-finite or not positive-definite blocks")
+    if failures:
+        raise RuntimeError("calibrated global SfM checks failed: " + "; ".join(failures))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke.py: no CUDA card; this script needs one")
@@ -710,7 +799,11 @@ def main() -> int:
     # 5. Global SfM end to end at full size.
     phase_global_sfm()
 
-    # 6. Summary lines.
+    # 6. The calibrated configuration: the dense Schur, the flat kernel, the
+    # covariance.
+    phase_calibrated_sfm()
+
+    # 7. Summary lines.
     d128 = next(d for d in rowmin["depths"] if d["D"] == 128)
     kernels = [
         dict(

@@ -2,27 +2,25 @@
 
 Counterpart of the JAX package's `ba/entry.py` (the reference's
 `BundleAdjustReconstruction`, `BundleAdjustPartialReconstruction`,
-`BundleAdjustView(s)`, `BundleAdjustTrack(s)`, `bundle_adjustment.h:181-219`):
-one kernel with different free-parameter masks.
+`BundleAdjustView(s)`, `BundleAdjustTrack(s)`, `bundle_adjustment.h:181-219`,
+and the covariance entries, `:221-250`): one kernel with different
+free-parameter masks.
 
 The problem is gathered on the host (numpy, as the JAX entry does), padded
 as the JAX entry pads it (views, tracks and groups by `_pad_soft` /
-`_pad_pow2`, so that the kernel's size gates switch at the same scenes), laid
-out in track slots and view rowchunks, and solved on `device`. The dispatch
-rules are the JAX entry's (`:410-443`):
-  - dense Schur (frozen intrinsics, <= 1024 padded views, tracks of <= 32
-    slots): not ported, raises naming ROADMAP item A7;
+`_pad_pow2`, so that the kernels' size gates switch at the same scenes),
+laid out in track slots and view rowchunks, and solved on `device`. The
+dispatch rules are the JAX entry's (`:410-443`):
+  - dense Schur (`ba/dense_schur.py`): frozen intrinsics, <= 1024 padded
+    views, tracks of <= 32 slots (the calibrated configuration);
   - rowchunk iterative Schur (`ba/iterative_schur.py`): everything else that
     fits the slot layout, the main path's free-intrinsics problems of every
     size among them;
-  - the flat implicit-PCG kernel (INVERSE_DEPTH, degenerate slot layouts):
-    not ported, raises naming ROADMAP item A5b.
+  - the flat implicit-PCG kernel (`ba/lm.bundle_adjust`): INVERSE_DEPTH
+    tracks, and problems whose slot padding would dwarf them (one track much
+    longer than the rest).
 The JAX entry's launch-cap cost model (`:384-409`) only sizes the TPU's
-launch chunks, which the port does not have (one LM loop,
-`iterative_schur.bundle_adjust_iterative`). The covariance entries
-(`compute_reconstruction_covariance`, `*_with_cov`) wait for ROADMAP item
-D1. `_rodrigues_np` serves the INVERSE_DEPTH write-back of the flat kernel
-(A5b).
+launch chunks, which the port does not have (one LM loop, `lm.run_lm`).
 """
 
 from __future__ import annotations
@@ -31,15 +29,17 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..models import intrinsics as intr_models
 from ..models.intrinsics import intrinsics_subset_mask
+from .dense_schur import DENSE_SCHUR_MAX_CAMERAS, bundle_adjust_dense, joint_covariance_dense
 from .iterative_schur import bundle_adjust_iterative
 from .lm import (
-    FLAT_KERNEL_ITEM,
     BundleAdjustmentOptions,
     BundleAdjustmentSummary,
     LinearSolverType,
     TrackParametrizationType,
-    check_no_priors,
+    bundle_adjust,
+    hessian_blocks,
 )
 
 __all__ = [
@@ -53,13 +53,8 @@ __all__ = [
     "bundle_adjust_view_with_cov",
     "bundle_adjust_tracks_with_cov",
     "bundle_adjust_track_with_cov",
+    "compute_reconstruction_covariance",
 ]
-
-# The JAX package's `ba/dense_schur.DENSE_SCHUR_MAX_CAMERAS`: AUTO's
-# crossover from the dense to the iterative Schur.
-DENSE_SCHUR_MAX_CAMERAS = 1024
-DENSE_SCHUR_ITEM = "ROADMAP item A7"
-COVARIANCE_ITEM = "ROADMAP item D1"
 
 
 def _pad_pow2(n: int, floor: int = 16) -> int:
@@ -203,6 +198,83 @@ def _rodrigues_np(aa, pts):
     return np.where(theta < 1e-12, pts, out)
 
 
+def _tensors(device):
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return t
+
+
+def _inverse_depth_tracks(recon, points3, T, Tp, dtype):
+    """INVERSE_DEPTH inputs: (track_ref [Tp], track_bearing [Tp, 3], inverse
+    depths [Tp, 1], valid reference [T]). The bearing is the observed
+    feature ray in the reference view (the reference stores the undistorted
+    feature bearing, track.h:84; the current point estimate would freeze its
+    lateral error into the parametrization), the depth the current point's
+    projection on it."""
+    ref = np.asarray(recon.track_reference_view[:T], np.int64)
+    valid_ref = ref >= 0
+    ref_safe = np.where(valid_ref, ref, 0)
+    c_ref = recon.view_extrinsics[ref_safe, :3]
+    aa_ref = recon.view_extrinsics[ref_safe, 3:]
+    p_ref = _rodrigues_np(aa_ref, points3[:T] - c_ref)
+    depth = np.linalg.norm(p_ref, axis=-1)
+    depth = np.where(depth < 1e-9, 1e-9, depth)
+    bearing = p_ref / depth[:, None]
+    for g in range(recon.intrinsics.shape[0]):
+        rows = [
+            (t, recon._view_track_to_obs[int(ref_safe[t])].get(t))
+            for t in range(T)
+            if valid_ref[t] and int(recon.view_group[ref_safe[t]]) == g
+        ]
+        rows = [(t, r) for (t, r) in rows if r is not None]
+        if not rows:
+            continue
+        t_idx = np.asarray([t for t, _ in rows])
+        uv = recon.obs_uv[[r for _, r in rows]]
+        ray = intr_models.pixel_to_camera(
+            torch.as_tensor(np.asarray(recon.intrinsics[g], dtype)[None, :]),
+            torch.as_tensor(np.asarray(uv, dtype)), recon.group_model[g]).numpy()
+        n = np.linalg.norm(ray, axis=-1, keepdims=True)
+        bearing[t_idx] = ray / np.where(n < 1e-12, 1.0, n)
+        depth_ray = np.sum(p_ref[t_idx] * bearing[t_idx], axis=-1)
+        depth[t_idx] = np.where(depth_ray > 1e-9, depth_ray, depth[t_idx])
+    track_ref = np.zeros((Tp,), np.int32)
+    track_bearing = np.zeros((Tp, 3), dtype)
+    pts_in = np.zeros((Tp, 1), dtype)
+    track_ref[:T] = ref_safe.astype(np.int32)
+    track_bearing[:T] = bearing.astype(dtype)
+    pts_in[:T, 0] = (1.0 / depth).astype(dtype)
+    return track_ref, track_bearing, pts_in, valid_ref
+
+
+def _view_priors(recon, view_sel, options, Vp, dtype):
+    """The 9-tuple of per-view prior arrays (pp, psi, pm, op, osi, om, gp,
+    gsi, gm) of `lm._prior_residual` for the participating views (position,
+    orientation, gravity, bundle_adjuster.cc:292-313), an unset sqrt
+    information taken as the identity; None when no prior is asked for."""
+    use = (options.use_position_priors, options.use_orientation_priors,
+           options.use_gravity_priors)
+    if not any(use):
+        return None
+    arrays = []
+    for _ in use:
+        arrays += [np.zeros((Vp, 3), dtype), np.zeros((Vp, 3, 3), dtype), np.zeros((Vp,), dtype)]
+    for v, vp in enumerate(recon.view_priors):
+        if not view_sel[v]:
+            continue
+        for k, (on, value, info) in enumerate((
+            (use[0], vp.position, vp.position_sqrt_information),
+            (use[1], vp.orientation, vp.orientation_sqrt_information),
+            (use[2], vp.gravity, vp.gravity_sqrt_information),
+        )):
+            if on and value is not None:
+                arrays[3 * k][v] = np.asarray(value, dtype)
+                arrays[3 * k + 1][v] = (np.asarray(info, dtype) if info is not None
+                                        else np.eye(3, dtype=dtype))
+                arrays[3 * k + 2][v] = 1.0
+    return tuple(arrays)
+
+
 def _run(recon, view_sel, track_sel, camera_free, point_free, options, dtype,
          orientation_constant: bool = False, device=None) -> BundleAdjustmentSummary:
     """Gather, pad, dispatch and solve; write the solution back into
@@ -211,21 +283,15 @@ def _run(recon, view_sel, track_sel, camera_free, point_free, options, dtype,
     if options.mesh is not None:
         raise NotImplementedError("bundle adjustment over a device mesh is not ported yet "
                                   "(ROADMAP item G1)")
-    check_no_priors(options)
     tp = options.track_parametrization_type
-    if tp == TrackParametrizationType.INVERSE_DEPTH:
-        raise NotImplementedError(
-            "INVERSE_DEPTH tracks go to the flat implicit-PCG kernel, which is not "
-            f"ported yet ({FLAT_KERNEL_ITEM})"
-        )
     prob = _gather_problem(recon, view_sel, track_sel, dtype)
     V, T = recon.num_views(), recon.num_tracks()
     G = recon.intrinsics.shape[0]
     P = recon.intrinsics.shape[1]
     Vp = _pad_soft(V, 8, 512, 256)
     Tp = _pad_soft(T, 64, 16384, 16384 if T > 150_000 else 8192)
-    # G == 1 keeps its own bucket: the kernel eliminates a single shared
-    # group exactly.
+    # G == 1 keeps its own bucket: the iterative kernel eliminates a single
+    # shared group exactly.
     Gp = 1 if G <= 1 else _pad_pow2(G, 4)
     ext_in = np.zeros((Vp, 6), dtype)
     ext_in[:V] = prob["extrinsics"]
@@ -251,7 +317,14 @@ def _run(recon, view_sel, track_sel, camera_free, point_free, options, dtype,
         if flags and g in free_groups:
             intr_free[g] = intrinsics_subset_mask(recon.group_model[g], flags)[:P]
 
-    if tp == TrackParametrizationType.XYZW_MANIFOLD:
+    # Track parametrization (bundle_adjustment.h:127-131).
+    track_ref = np.zeros((Tp,), np.int32)
+    track_bearing = np.zeros((Tp, 3), dtype)
+    if tp == TrackParametrizationType.INVERSE_DEPTH:
+        track_ref, track_bearing, pts_in, valid_ref = _inverse_depth_tracks(
+            recon, prob["points"], T, Tp, dtype)
+        point_free = point_free & valid_ref
+    elif tp == TrackParametrizationType.XYZW_MANIFOLD:
         pts_in = np.zeros((Tp, 4), dtype)
         pts_in[:, 3] = 1.0
         p4 = recon.points[:T].astype(np.float64)
@@ -271,9 +344,16 @@ def _run(recon, view_sel, track_sel, camera_free, point_free, options, dtype,
     pt_free_p = np.zeros(Tp, bool)
     pt_free_p[:T] = point_free
 
+    t = _tensors(device)
+    priors = _view_priors(recon, view_sel, options, Vp, dtype)
+    if priors is not None:
+        priors = tuple(t(a) for a in priors)
+
     # Dispatch (`ba/entry.py:410-443` of the JAX package).
     O_real = int(np.sum(prob["obs_mask"]))
-    slot = _slot_layout(prob, Tp, dtype)
+    slot = None
+    if tp != TrackParametrizationType.INVERSE_DEPTH:
+        slot = _slot_layout(prob, Tp, dtype)
     rowchunk = None
     want_dense = options.linear_solver_type in (LinearSolverType.AUTO,
                                                 LinearSolverType.DENSE_SCHUR)
@@ -286,28 +366,30 @@ def _run(recon, view_sel, track_sel, camera_free, point_free, options, dtype,
             rowchunk = _rowchunk_layout(slot, Vp)
         if rowchunk is None:
             slot = None
+
+    common = (t(ext_in), t(intr_in), t(pts_in), t(view_group), t(group_model_idx))
     if use_dense:
-        raise NotImplementedError(
-            "the dense-Schur bundle adjustment (frozen intrinsics, <= "
-            f"{DENSE_SCHUR_MAX_CAMERAS} cameras) is not ported yet ({DENSE_SCHUR_ITEM})"
+        ext, intr_out, pts, summary = bundle_adjust_dense(
+            *common, t(slot["track_views"]), t(slot["uv"]), t(slot["info"]), t(slot["mask"]),
+            t(cam_free_p), t(pt_free_p), present_models=present, num_views=Vp, num_tracks=Tp,
+            max_track_len=slot["L"], num_groups=Gp, options=options, priors=priors,
         )
-    if rowchunk is None:
-        raise NotImplementedError(
-            "this problem goes to the flat implicit-PCG kernel (no usable slot layout), "
-            f"which is not ported yet ({FLAT_KERNEL_ITEM})"
+    elif rowchunk is not None:
+        ext, intr_out, pts, summary = bundle_adjust_iterative(
+            *common, t(slot["track_views"]), t(slot["uv"]), t(slot["info"]), t(slot["mask"]),
+            t(rowchunk["row_view"]), t(rowchunk["rc_src"]), t(rowchunk["rc_mask"]),
+            t(cam_free_p), t(pt_free_p), t(intr_free),
+            present_models=present, num_views=Vp, num_tracks=Tp, max_track_len=slot["L"],
+            num_rows=rowchunk["R"], row_chunk=rowchunk["C"], num_groups=Gp, options=options,
+            priors=priors,
         )
-
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
-
-    ext, intr_out, pts, summary = bundle_adjust_iterative(
-        t(ext_in), t(intr_in), t(pts_in), t(view_group), t(group_model_idx),
-        t(slot["track_views"]), t(slot["uv"]), t(slot["info"]), t(slot["mask"]),
-        t(rowchunk["row_view"]), t(rowchunk["rc_src"]), t(rowchunk["rc_mask"]),
-        t(cam_free_p), t(pt_free_p), t(intr_free),
-        present_models=present, num_views=Vp, num_tracks=Tp, max_track_len=slot["L"],
-        num_rows=rowchunk["R"], row_chunk=rowchunk["C"], num_groups=Gp, options=options,
-    )
+    else:
+        ext, intr_out, pts, summary = bundle_adjust(
+            *common, t(prob["obs_view"]), t(prob["obs_track"]), t(prob["obs_uv"]),
+            t(prob["obs_sqrt_info"]), t(prob["obs_mask"]), t(cam_free_p), t(pt_free_p),
+            t(intr_free), t(track_ref), t(track_bearing), present_models=present,
+            num_views=Vp, num_tracks=Tp, num_groups=Gp, options=options, priors=priors,
+        )
     ext = ext.cpu().numpy().astype(recon.dtype)[:V]
     pts = pts.cpu().numpy().astype(recon.dtype)[:T]
     recon.view_extrinsics[camera_free] = ext[camera_free]
@@ -315,7 +397,18 @@ def _run(recon, view_sel, track_sel, camera_free, point_free, options, dtype,
         intr_out = intr_out.cpu().numpy().astype(recon.dtype)[:G]
         moved = intr_free[:G].any(axis=-1)
         recon.intrinsics[moved] = intr_out[moved]
-    if tp == TrackParametrizationType.XYZW_MANIFOLD:
+    if tp == TrackParametrizationType.INVERSE_DEPTH:
+        rho = pts[:, 0]
+        recon.track_inverse_depth[point_free] = rho[point_free]
+        depth = 1.0 / np.where(np.abs(rho) < 1e-12, 1e-12, rho)
+        ref = track_ref[:T].astype(np.int64)
+        c_ref = recon.view_extrinsics[ref, :3]
+        aa_ref = recon.view_extrinsics[ref, 3:]
+        p_world = c_ref + _rodrigues_np(
+            -aa_ref, np.asarray(track_bearing[:T], np.float64) * depth[:, None])
+        recon.points[point_free, :3] = p_world[point_free]
+        recon.points[point_free, 3] = 1.0
+    elif tp == TrackParametrizationType.XYZW_MANIFOLD:
         recon.points[point_free] = pts[point_free]
     else:
         recon.points[point_free, :3] = pts[point_free]
@@ -381,14 +474,187 @@ def bundle_adjust_track(options, track_id, recon, dtype=np.float32, device=None)
     return bundle_adjust_tracks(options, [track_id], recon, dtype, device=device)
 
 
-def _covariance_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        f"bundle adjustment with covariance is not ported yet ({COVARIANCE_ITEM})"
-    )
+def _covariance_problem(recon, dtype):
+    """The covariance entries' problem, padded as the JAX entry pads it
+    (`_pad_pow2` on views and tracks): (gather, view_sel, track_sel, V, T,
+    Vp, Tp)."""
+    view_sel = recon.view_estimated.copy()
+    track_sel = recon.track_estimated.copy()
+    prob = _gather_problem(recon, view_sel, track_sel, dtype)
+    V, T = recon.num_views(), recon.num_tracks()
+    return prob, view_sel, track_sel, V, T, _pad_pow2(V, 8), _pad_pow2(T, 64)
 
 
-bundle_adjust_views_with_cov = _covariance_not_ported
-bundle_adjust_view_with_cov = _covariance_not_ported
-bundle_adjust_tracks_with_cov = _covariance_not_ported
-bundle_adjust_track_with_cov = _covariance_not_ported
-compute_reconstruction_covariance = _covariance_not_ported
+def compute_reconstruction_covariance(options: BundleAdjustmentOptions, recon,
+                                      constant_views=(), dtype=np.float64, view_ids=None,
+                                      track_ids=None, device=None):
+    """Joint-problem marginal covariances: the general `ceres::Covariance`
+    case on the full problem (`bundle_adjuster.cc:660-744`), not the
+    block-diagonal approximation of the `*_with_cov` entries.
+
+    `constant_views` are held constant to fix the gauge (the covariance of a
+    gauge-free problem is singular). Returns ({view_id: [6, 6]},
+    {track_id: [3, 3]}, variance_factor). With `view_ids` None, every block
+    by the dense Schur inverse (`dense_schur.joint_covariance_dense`), up to
+    `DENSE_SCHUR_MAX_CAMERAS` padded views and slot length 32 (larger
+    problems raise); with `view_ids`, the requested columns of S^-1 by PCG
+    (`covariance.selected_covariance_pcg`) at any scale, the observing
+    views of `track_ids` added to the solve."""
+    device = default_device(device)
+    prob, view_sel, track_sel, V, T, Vp, Tp = _covariance_problem(recon, dtype)
+    selected = view_ids is not None
+    if not selected and Vp > DENSE_SCHUR_MAX_CAMERAS:
+        raise ValueError(
+            f"compute_reconstruction_covariance(view_ids=None) materializes a dense "
+            f"[{6 * Vp}, {6 * Vp}] Schur complement; supported up to "
+            f"{DENSE_SCHUR_MAX_CAMERAS} (padded) views, got {V}. Pass view_ids=/track_ids= "
+            f"for the matrix-free selected-block path (any scale), or use "
+            f"bundle_adjust_views_with_cov / bundle_adjust_tracks_with_cov."
+        )
+    slot = _slot_layout(prob, Tp, dtype)
+    if slot is None:
+        return {}, {}, 0.0
+    if not selected and slot["L"] > 32:
+        raise ValueError(
+            f"compute_reconstruction_covariance gathers [T, L, L, 6, 6] blocks; supported up "
+            f"to slot length 32, got L={slot['L']}. Pass view_ids= for the selected-block path."
+        )
+    ext = np.zeros((Vp, 6), dtype)
+    ext[:V] = prob["extrinsics"]
+    pts = np.zeros((Tp, 3), dtype)
+    pts[:T] = prob["points"]
+    G = recon.intrinsics.shape[0]
+    P = recon.intrinsics.shape[1]
+    Gp = _pad_pow2(max(G, 1), 4)
+    intr_in = np.zeros((Gp, P), dtype)
+    intr_in[:, 0] = 1.0
+    intr_in[:, 1] = 1.0
+    intr_in[:G] = recon.intrinsics.astype(dtype)
+    view_group = np.zeros((Vp,), np.int32)
+    view_group[:V] = recon.view_group
+    groups_used = {int(g) for g in np.unique(recon.view_group[:V])}
+    present = tuple(sorted({int(recon.group_model[g]) for g in groups_used} or {0}))
+    group_model_idx = np.zeros((Gp,), np.int32)
+    for g in range(G):
+        m = int(recon.group_model[g])
+        group_model_idx[g] = present.index(m) if m in present else 0
+    cam_free = np.zeros(Vp, bool)
+    cam_free[:V] = view_sel
+    for v in constant_views:
+        cam_free[v] = False
+    pt_free = np.zeros(Tp, bool)
+    pt_free[:T] = track_sel
+    n_params = 6 * int(cam_free[:V].sum()) + 3 * int(pt_free[:T].sum())
+
+    t = _tensors(device)
+    common = (t(ext), t(intr_in), t(pts), t(view_group), t(group_model_idx),
+              t(slot["track_views"]), t(slot["uv"]), t(slot["info"]), t(slot["mask"]),
+              t(cam_free), t(pt_free))
+    common_kw = dict(present_models=present, num_views=Vp, num_tracks=Tp,
+                     max_track_len=slot["L"], num_groups=Gp, options=options)
+    if selected:
+        from .covariance import selected_covariance_pcg
+
+        req_views = [int(v) for v in view_ids if cam_free[v]]
+        req_tracks = [int(tr) for tr in (track_ids or ()) if pt_free[tr]]
+        # Track marginals need S^-1 columns at their observing views.
+        solve_views = list(dict.fromkeys(req_views))
+        have = set(solve_views)
+        for tr in req_tracks:
+            for row in recon.track_observations(tr):
+                v = int(recon.obs_view[row])
+                if cam_free[v] and v not in have:
+                    have.add(v)
+                    solve_views.append(v)
+        if not solve_views:
+            return {}, {}, 0.0
+        # The selections padded to powers of two, as the JAX entry pads them.
+        sel_v = np.full((_pad_pow2(len(solve_views), 4),), solve_views[0], np.int32)
+        sel_v[: len(solve_views)] = solve_views
+        sel_t = np.zeros((_pad_pow2(max(len(req_tracks), 1), 4),), np.int32)
+        sel_t[: len(req_tracks)] = req_tracks
+        cam_cov, track_cov, cost, nres, _ = selected_covariance_pcg(
+            *common, t(sel_v), t(sel_t), **common_kw)
+        cam_cov, track_cov = cam_cov.cpu().numpy(), track_cov.cpu().numpy()
+        variance_factor = 2.0 * float(cost) / max(int(nres) - n_params, 1)
+        pos = {v: i for i, v in enumerate(solve_views)}
+        return ({v: cam_cov[pos[v]] * variance_factor for v in req_views},
+                {tr: track_cov[i] * variance_factor for i, tr in enumerate(req_tracks)},
+                variance_factor)
+    cam_cov, track_cov, cost, nres = joint_covariance_dense(*common, **common_kw)
+    cam_cov, track_cov = cam_cov.cpu().numpy(), track_cov.cpu().numpy()
+    variance_factor = 2.0 * float(cost) / max(int(nres) - n_params, 1)
+    return ({v: cam_cov[v] * variance_factor for v in range(V) if cam_free[v]},
+            {tr: track_cov[tr] * variance_factor for tr in range(T) if pt_free[tr]},
+            variance_factor)
+
+
+def _covariance_blocks(recon, options, dtype, device):
+    """Hessian blocks U [V, 6, 6] and Vt [T, 3, 3], the robust cost and the
+    observation count at the current state."""
+    prob, _, _, V, T, Vp, Tp = _covariance_problem(recon, dtype)
+    ext = np.zeros((Vp, 6), dtype)
+    ext[:V] = prob["extrinsics"]
+    pts = np.zeros((Tp, 3), dtype)
+    pts[:T] = prob["points"]
+    t = _tensors(device)
+    U, Vt, cost, n_obs = hessian_blocks(
+        t(ext), t(pts), t(prob["intrinsics_rows"]), t(prob["obs_view"]), t(prob["obs_track"]),
+        t(prob["obs_uv"]), t(prob["obs_sqrt_info"]), t(prob["obs_mask"]), model=prob["model"],
+        num_views=Vp, num_tracks=Tp, options=options)
+    return U.cpu().numpy()[:V], Vt.cpu().numpy()[:T], float(cost), int(n_obs)
+
+
+def _inverse_blocks(blocks, ids, variance_factor):
+    """{id: inv(block) variance_factor} in f64, or None if a block is
+    singular."""
+    out = {}
+    for i in ids:
+        try:
+            out[i] = np.linalg.inv(blocks[i].astype(np.float64)) * variance_factor
+        except np.linalg.LinAlgError:
+            return None
+    return out
+
+
+def bundle_adjust_views_with_cov(options: BundleAdjustmentOptions, view_ids, recon,
+                                 dtype=np.float32, device=None):
+    """Parity: `theia::BundleAdjustViews` with covariance
+    (`bundle_adjustment.h:246-250`): optimize the views (tracks constant),
+    then return (summary, {view: 6x6 empirical covariance}, the empirical
+    variance factor sigma^2 = 2 cost / (residuals - parameters)); both None
+    if a block is singular."""
+    device = default_device(device)
+    summary = bundle_adjust_views(options, view_ids, recon, dtype, device=device)
+    U, _, cost, n_obs = _covariance_blocks(recon, options, dtype, device)
+    variance_factor = 2.0 * cost / max(2 * n_obs - 6 * len(view_ids), 1)
+    covariances = _inverse_blocks(U, view_ids, variance_factor)
+    return summary, covariances, None if covariances is None else variance_factor
+
+
+def bundle_adjust_view_with_cov(options, view_id, recon, dtype=np.float32, device=None):
+    """Parity: `theia::BundleAdjustView` with covariance
+    (`bundle_adjustment.h:239-243`)."""
+    summary, covs, vf = bundle_adjust_views_with_cov(options, [view_id], recon, dtype,
+                                                     device=device)
+    return summary, (covs or {}).get(view_id), vf
+
+
+def bundle_adjust_tracks_with_cov(options: BundleAdjustmentOptions, track_ids, recon,
+                                  dtype=np.float32, device=None):
+    """Parity: `theia::BundleAdjustTracks` with covariance
+    (`bundle_adjustment.h:230-236`): per-track 3x3 covariances."""
+    device = default_device(device)
+    summary = bundle_adjust_tracks(options, track_ids, recon, dtype, device=device)
+    _, Vt, cost, n_obs = _covariance_blocks(recon, options, dtype, device)
+    variance_factor = 2.0 * cost / max(2 * n_obs - 3 * len(track_ids), 1)
+    covariances = _inverse_blocks(Vt, track_ids, variance_factor)
+    return summary, covariances, None if covariances is None else variance_factor
+
+
+def bundle_adjust_track_with_cov(options, track_id, recon, dtype=np.float32, device=None):
+    """Parity: `theia::BundleAdjustTrack` with covariance
+    (`bundle_adjustment.h:223-228`)."""
+    summary, covs, vf = bundle_adjust_tracks_with_cov(options, [track_id], recon, dtype,
+                                                      device=device)
+    return summary, (covs or {}).get(track_id), vf

@@ -34,12 +34,14 @@ coarse build are computed from the sizes the kernel is given; `ba/entry.py`
 pads views and tracks as the JAX entry does, so they switch at the same
 scenes (553 views pad to 768: no coarse level).
 
-Loop control is the JAX kernel's: PCG stops at `linear_solver_iterations`
-or when |r|^2 <= tol^2 |g|^2, LM accepts a step that lowers a finite cost,
-updates the damping from the gain ratio, and stops when the relative cost
-change of a step, accepted or not, falls below `function_tolerance`. Both
-loops read their stopping test on the host once an iteration, so they run
-the iterations the JAX `while_loop`s run. `use_mixed_precision_solves`
+Loop control is the JAX kernel's (`lm._pcg`, `lm.run_lm`): PCG stops at
+`linear_solver_iterations` or when |r|^2 <= tol^2 |g|^2, LM accepts a step
+that lowers a finite cost, updates the damping from the gain ratio, and
+stops when the relative cost change of a step, accepted or not, falls below
+`function_tolerance`. Both loops read their stopping test on the host once
+an iteration, so they run the iterations the JAX `while_loop`s run. View
+priors add their 6x6 blocks to the diagonal (and the coarse level's
+extras). `use_mixed_precision_solves`
 rounds the PCG matvec's operands to bf16 (accumulation stays in the state's
 dtype).
 
@@ -62,14 +64,16 @@ from torch.autograd import forward_ad
 from ..models.intrinsics import intrinsics_subset_mask
 from .lm import (
     BundleAdjustmentOptions,
-    BundleAdjustmentSummary,
     OptimizeIntrinsicsType,
-    PRIORS_ITEM,
     TrackParametrizationType,
+    _free_masks,
+    _pcg,
     _point_tangent_basis4,
+    _prior_cost,
+    _prior_terms,
     _residual_at_point,
-    check_no_priors,
     inv_small_spd,
+    run_lm,
 )
 from .losses import loss_rho, loss_weight
 
@@ -115,8 +119,8 @@ class _Problem:
     def __init__(self, extrinsics, intrinsics, points, view_group, group_model_idx,
                  track_views, obs_uv, obs_sqrt_info, obs_mask, row_view, rc_src, rc_mask,
                  camera_free, point_free, intrinsics_free, present_models, num_views,
-                 num_tracks, max_track_len, num_rows, row_chunk, num_groups, options):
-        check_no_priors(options)
+                 num_tracks, max_track_len, num_rows, row_chunk, num_groups, options, priors=None):
+        self.priors = priors
         tp = options.track_parametrization_type
         if tp == TrackParametrizationType.INVERSE_DEPTH:
             raise ValueError(
@@ -152,10 +156,7 @@ class _Problem:
         self.Vc = -(-V // self.group)
         self.coarse_stride = 4 if T * L > _SCAN_SLOT_THRESHOLD else 1
 
-        if camera_free.ndim == 1:
-            camera_free = camera_free[..., None]
-        self.cam_free = (camera_free & options.optimize_cameras).to(dtype).expand(V, 6)
-        self.pt_free = (point_free & options.optimize_points)[..., None].to(dtype)  # [T, 1]
+        self.cam_free, self.pt_free = _free_masks(camera_free, point_free, options, V, dtype)
         intr_free = intrinsics_free.to(dtype)
 
         self.track_views = track_views.long()
@@ -264,7 +265,8 @@ class _Problem:
 
     def cost_of(self, state):
         _, _, _, _, s = self.slot_residuals(*state, with_jac=False)
-        return 0.5 * torch.sum(loss_rho(s, self.loss, self.width) * self.maskf)
+        return (0.5 * torch.sum(loss_rho(s, self.loss, self.width) * self.maskf)
+                + _prior_cost(state[0], self.priors))
 
     def apply_step(self, pts, dp):
         if self.manifold:
@@ -291,13 +293,15 @@ class _Problem:
 
     def lm_step(self, state, mu):
         """One LM proposal at damping mu: (new state, predicted decrease,
-        all-finite flag), each a tensor on the device."""
+        all-finite flag, PCG steps), the first three tensors on the
+        device."""
         dtype, dev = self.dtype, self.device
         V, T, L, G, R, C, O = self.V, self.T, self.L, self.G, self.R, self.C, self.O
         Fi, K = self.Fi, 3
         has_intr, exact_elim, joint_intr = self.has_intr, self.exact_elim, self.joint_intr
         ext_c, intr_c, pts_c = state
         r_t, Jc_t, Ji_t, Jp_t, _ = self.slot_residuals(ext_c, intr_c, pts_c, with_jac=True)
+        r_pr, J_pr = _prior_terms(ext_c, self.priors, self.cam_free)
         eyeK = torch.eye(K, dtype=dtype, device=dev)
         eye6 = torch.eye(6, dtype=dtype, device=dev)
         eyeF = torch.eye(Fi, dtype=dtype, device=dev)
@@ -354,11 +358,19 @@ class _Problem:
 
         Mv = red[:, :36].reshape(V, 6, 6)
         bc = -red[:, 36:42]
-        Dc = torch.clamp(red[:, 42:48], min=1e-6)
+        Dc = red[:, 42:48]
+        if J_pr is not None:
+            pr_blocks = J_pr.mT @ J_pr
+            bc = bc - torch.sum(J_pr * r_pr[..., None], dim=1)
+            Dc = Dc + torch.sum(J_pr * J_pr, dim=1)
+        Dc = torch.clamp(Dc, min=1e-6)
         gc = bc - red[:, 48:54]
         off = 54
         cam_frozen = (1.0 - self.cam_free)[..., None, :] * eye6
+        # The exact extras of the diagonal blocks (also the coarse level's).
         extras_v = mu * (eye6 * Dc[..., None, :]) + cam_frozen + 1e-8 * eye6
+        if J_pr is not None:
+            extras_v = extras_v + pr_blocks
         Mv = Mv + extras_v
 
         if exact_elim:
@@ -414,6 +426,8 @@ class _Problem:
             u = rnd(y - w).reshape(O, 2)[self.rc_src]  # [R, C, 2]
             a = self.rows_to_views(torch.sum(Jc_rc * u[..., None], dim=(1, 2)))
             sc = a + mu * Dc * xc
+            if J_pr is not None:
+                sc = sc + _av(pr_blocks, xc)
             if exact_elim:
                 sc = sc - intr_corr(xc)
             if joint_intr:
@@ -433,7 +447,7 @@ class _Problem:
             return (pc,)
 
         g = (gc, gint) if joint_intr else (gc,)
-        dxs, self.pcg_iterations = _pcg(S_mv, precond, g, self.options)
+        dxs, n_pcg = _pcg(S_mv, precond, g, self.options)
         dc = dxs[0] * self.cam_free
         if exact_elim:
             # The eliminated intrinsics step: dq = Sq^-1 (gq - B^T dc).
@@ -464,7 +478,7 @@ class _Problem:
             pred = pred + 0.5 * torch.sum(di_f * (mu * Di * di_f + bi))
         ok = (torch.all(torch.isfinite(dc)) & torch.all(torch.isfinite(dp))
               & torch.all(torch.isfinite(di)))
-        return new_state, pred, ok
+        return new_state, pred, ok, n_pcg
 
     def _coarse_factor(self, W, Y, U_slot, extras_v, elim):
         """Cholesky factor of the coarse Schur complement R^T S~ R over
@@ -499,38 +513,6 @@ class _Problem:
         return torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
 
 
-def _dot(a, b):
-    return sum(torch.sum(x * y) for x, y in zip(a, b))
-
-
-def _pcg(S_mv, precond, g, options):
-    """Preconditioned CG from 0 on S x = g: stops after
-    `linear_solver_iterations` or when |r|^2 <= tol^2 |g|^2 (read on the
-    host before each iteration, as the JAX `while_loop` tests it). Returns
-    (x, the iterations run)."""
-    tol2 = (options.linear_solver_tolerance ** 2) * _dot(g, g)
-    x = tuple(torch.zeros_like(v) for v in g)
-    rres = g
-    z = precond(g)
-    p = z
-    rz = _dot(g, z)
-    one = torch.ones((), dtype=rz.dtype, device=rz.device)
-    it = 0
-    while it < options.linear_solver_iterations and bool(_dot(rres, rres) > tol2):
-        Sp = S_mv(p)
-        pSp = _dot(p, Sp)
-        alpha = rz / torch.where(pSp == 0, one, pSp)
-        x = tuple(a + alpha * b for a, b in zip(x, p))
-        rres = tuple(a - alpha * b for a, b in zip(rres, Sp))
-        z = precond(rres)
-        rz_new = _dot(rres, z)
-        beta = rz_new / torch.where(rz == 0, one, rz)
-        p = tuple(a + beta * b for a, b in zip(z, p))
-        rz = rz_new
-        it += 1
-    return x, it
-
-
 def bundle_adjust_iterative(
     extrinsics, intrinsics, points, view_group, group_model_idx, track_views, obs_uv,
     obs_sqrt_info, obs_mask, row_view, rc_src, rc_mask, camera_free, point_free,
@@ -539,65 +521,15 @@ def bundle_adjust_iterative(
     options: BundleAdjustmentOptions, priors=None,
 ):
     """LM to convergence with the rowchunk iterative-Schur kernel on the
-    device of the input tensors. Returns (extrinsics, intrinsics, points,
-    summary).
-
-    One loop: the JAX package runs it in launches of
-    `max_iterations_per_launch` iterations (a TPU watchdog limit), carrying
-    the damping, summing the iterations, taking `initial_cost` from the
-    first launch and stopping on convergence, which computes what one loop
-    computes. A zero-iteration budget returns the state unchanged with zero
-    costs, as there. `priors` must be None (view priors: ROADMAP item A5c).
-    """
-    if priors is not None:
-        raise NotImplementedError(f"bundle adjustment with view priors is not ported yet "
-                                  f"({PRIORS_ITEM})")
-    state = (extrinsics, intrinsics, points)
-    if options.max_num_iterations <= 0:
-        return (*state, BundleAdjustmentSummary(
-            success=True, initial_cost=0.0, final_cost=0.0, num_iterations=0,
-            final_mu=1.0 / options.initial_trust_region_radius,
-        ))
-    from ..utils import counters
-
-    counters.bump("ba_launch")
+    device of the input tensors (the LM loop: `lm.run_lm`). Returns
+    (extrinsics, intrinsics, points, summary). `priors`: the entry's 9-tuple
+    of per-view prior arrays, or None."""
     prob = _Problem(
         extrinsics, intrinsics, points, view_group, group_model_idx, track_views, obs_uv,
         obs_sqrt_info, obs_mask, row_view, rc_src, rc_mask, camera_free, point_free,
         intrinsics_free, present_models, num_views, num_tracks, max_track_len, num_rows,
-        row_chunk, num_groups, options,
+        row_chunk, num_groups, options, priors,
     )
-    cost = prob.cost_of(state)
-    initial_cost = cost
-    mu = torch.tensor(1.0 / options.initial_trust_region_radius, dtype=prob.dtype,
-                      device=prob.device)
-    it, done, pcg = 0, False, 0
-    while not done and it < options.max_num_iterations:
-        new_state, pred, ok = prob.lm_step(state, mu)
-        pcg += prob.pcg_iterations
-        new_cost = prob.cost_of(new_state)
-        actual = cost - new_cost
-        accept = ok & (actual > 0) & torch.isfinite(new_cost)
-        gain = actual / torch.clamp(pred, min=1e-30)
-        shrink = torch.clamp(1.0 - (2.0 * torch.clamp(gain, 0.0, 1.0) - 1.0) ** 3, min=1.0 / 3.0)
-        mu = torch.clamp(torch.where(accept, mu * shrink, mu * 4.0), 1e-12, 1e10)
-        state = tuple(torch.where(accept, n, o) for n, o in zip(new_state, state))
-        # Sign-insensitive function tolerance (Ceres semantics): a step
-        # accepted or rejected ends the solve when it changes the cost by
-        # less than the tolerance.
-        rel_change = torch.abs(actual) / torch.clamp(cost, min=1e-30)
-        stop = torch.isfinite(new_cost) & (rel_change < options.function_tolerance)
-        cost = torch.where(accept, new_cost, cost)
-        it += 1
-        done = bool(stop)
-    initial, final = float(initial_cost), float(cost)
-    summary = BundleAdjustmentSummary(
-        success=bool(torch.isfinite(cost)) and final <= initial,
-        initial_cost=initial,
-        final_cost=final,
-        num_iterations=it,
-        final_mu=float(mu),
-        converged=done,
-        num_linear_solver_iterations=pcg,
-    )
+    state, summary = run_lm(prob.cost_of, prob.lm_step, (extrinsics, intrinsics, points),
+                            options, "iterative")
     return (*state, summary)

@@ -159,16 +159,20 @@ def run(V=553, T=50_000, seed=0, estimator_type="global", calibrated=False, devi
     """Build the scene and run the global estimator on `device` (None: the
     CUDA card); returns the phase seconds, the accuracy and the counts (one
     dict: the JAX package's keys, plus `estimated_tracks`, `ba_rounds` (the
-    estimator's `bundle_adjustment_rounds`) and `stage_seconds` (each stage
+    estimator's `bundle_adjustment_rounds`), `reconstruction` (the estimated
+    container) and `stage_seconds` (each stage
     of `estimate`, host clock ending in a device synchronize)). With
     `profile`, each stage also runs under `torch.profiler`, and
     `launches` / `device_seconds` give its kernel launches and their device
     time (the profiler's own cost is then in the seconds).
 
-    `calibrated=True` (constant intrinsics, XYZW tracks) sends bundle
-    adjustment to the dense Schur, which is not ported (ROADMAP item A7).
-    The default keeps the reference-default free focal+radial intrinsics
-    and XYZW_MANIFOLD tracks. `estimator_type` is accepted for parity and
+    `calibrated=True` holds the intrinsics constant (XYZW tracks): the
+    scene carries exact calibration priors and no distortion, and the
+    reference's guidance for accurately known calibration is constant
+    intrinsics (`reconstruction_estimator_options.h:277-284`); bundle
+    adjustment then takes the dense Schur. The default keeps the
+    reference-default free focal+radial intrinsics and XYZW_MANIFOLD tracks
+    (the iterative Schur). `estimator_type` is accepted for parity and
     the estimator is always the global one, as in the JAX package.
     """
     from ..ba.lm import OptimizeIntrinsicsType, TrackParametrizationType
@@ -221,6 +225,7 @@ def run(V=553, T=50_000, seed=0, estimator_type="global", calibrated=False, devi
         median_pos_err=float(np.median(err)),
         mean_pos_err=float(np.mean(err)),
         ba_rounds=estimator.bundle_adjustment_rounds,
+        reconstruction=recon,
         stage_seconds=timer.seconds,
         launches=timer.launches,
         device_seconds=timer.device_seconds,

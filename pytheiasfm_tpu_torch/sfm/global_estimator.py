@@ -5,15 +5,15 @@ Counterpart of the JAX package's `sfm/global_estimator.py`
 `global_reconstruction_estimator.cc:142-271`). The host orchestrates; every
 numeric stage runs on the estimator's device: rotation averaging (L1 +
 IRLS), the orientation and 1DSfM filters, pairwise translations, LUD
-positions, track triangulation, iterative-Schur bundle adjustment with
-outlier removal and retriangulation.
+positions, track triangulation, bundle adjustment (the iterative Schur at
+the reference-default options, the dense Schur with constant intrinsics)
+with outlier removal and retriangulation.
 
 Steps 1-7 (`_estimate_poses`) are also what `tools/global_pose.py` runs and
 times stage by stage. Not ported, each raising `NotImplementedError` that
 names its ROADMAP item: the rotation estimators other than ROBUST_L1L2 and
 the position estimators other than LUD (D1), the maximal rigid subgraph
-filter (D1), a device mesh (G1); through bundle adjustment, the dense Schur
-of the calibrated configuration (A7).
+filter (D1), a device mesh (G1).
 """
 
 from __future__ import annotations
@@ -68,8 +68,8 @@ class GlobalReconstructionEstimator:
     """Parity: `theia::GlobalReconstructionEstimator`
     (`global_reconstruction_estimator.h:71-90`). `device`: where the
     numeric stages run (None: the CUDA card). After `estimate`,
-    `bundle_adjustment_rounds` holds one dict a BA round: LM and PCG
-    iterations, initial and final cost, outliers removed, tracks retriangulated, and
+    `bundle_adjustment_rounds` holds one dict a BA round: the kernel that
+    ran (`solver`: "dense", "iterative" or "flat"), LM and PCG iterations, initial and final cost, outliers removed, tracks retriangulated, and
     the seconds of the solve and of the outlier filter."""
 
     def __init__(self, options: ReconstructionEstimatorOptions | None = None, device=None):
@@ -350,14 +350,15 @@ class GlobalReconstructionEstimator:
             )
             set_underconstrained_tracks_to_unestimated(recon)
             t2 = time.perf_counter()
-            rnd = dict(round=it, iterations=int(ba_summary.num_iterations),
+            rnd = dict(round=it, solver=ba_summary.linear_solver,
+                       iterations=int(ba_summary.num_iterations),
                        pcg_iterations=ba_summary.num_linear_solver_iterations,
                        initial_cost=ba_summary.initial_cost, final_cost=ba_summary.final_cost,
                        outliers=num_outliers, retriangulated=0, solve_s=t1 - t0,
                        filter_s=t2 - t1)
             self.bundle_adjustment_rounds.append(rnd)
-            logger.info("BA round %d: %d LM iterations, cost %.4g -> %.4g, %d outliers "
-                        "(solve %.2fs, filter %.2fs)", it, rnd["iterations"],
+            logger.info("BA round %d (%s): %d LM iterations, cost %.4g -> %.4g, %d outliers "
+                        "(solve %.2fs, filter %.2fs)", it, rnd["solver"], rnd["iterations"],
                         rnd["initial_cost"], rnd["final_cost"], num_outliers, t1 - t0, t2 - t1)
             if it == opt.num_retriangulation_iterations or num_outliers == 0:
                 break

@@ -1,10 +1,11 @@
 """Global SfM end to end on the CUDA card: the 553-view synthetic scene.
 
-    python -m pytheiasfm_tpu_torch.tools.global_sfm [--profile]
+    python -m pytheiasfm_tpu_torch.tools.global_sfm [--calibrated] [--profile]
 
 Runs `pipelines.synthetic_global.run()` (553 views, 50,000 tracks, seed 0,
 the reference-default options: free focal + radial intrinsics,
-XYZW_MANIFOLD tracks) on the card twice, a first and a warm run, and
+XYZW_MANIFOLD tracks, so the iterative Schur; with `--calibrated` constant
+intrinsics and XYZW tracks, so the dense Schur) on the card twice, a first and a warm run, and
 prints each stage's seconds, each bundle-adjustment round (LM iterations,
 cost before and after, outliers removed, seconds) and the accuracy against
 ground truth. With `--profile` a third run goes under `torch.profiler`:
@@ -31,9 +32,11 @@ def describe(label, res) -> list[str]:
     lines = [f"[{label}] " + ", ".join(f"{k} {sec[k]:.3f} s" for k in STAGES if k in sec)
              + f"; estimate {res['t_total_s']:.3f} s"]
     for r in res["ba_rounds"]:
+        solve = ("direct solves" if r["solver"] == "dense"
+                 else f"{r['pcg_iterations']} PCG steps")
         lines.append(
-            f"[{label}] BA round {r['round']}: {r['iterations']} LM iterations "
-            f"({r['pcg_iterations']} PCG steps), cost "
+            f"[{label}] BA round {r['round']} ({r['solver']} kernel): {r['iterations']} LM "
+            f"iterations ({solve}), cost "
             f"{r['initial_cost']!r} -> {r['final_cost']!r}, {r['outliers']} outliers removed, "
             f"{r['retriangulated']} tracks retriangulated; solve {r['solve_s']:.3f} s, "
             f"outlier filter {r['filter_s']:.3f} s")
@@ -52,6 +55,8 @@ def describe(label, res) -> list[str]:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--calibrated", action="store_true",
+                        help="constant intrinsics and XYZW tracks (BA by the dense Schur)")
     parser.add_argument("--profile", action="store_true",
                         help="a third run under torch.profiler: launches and device time a stage")
     args = parser.parse_args(argv)
@@ -64,7 +69,7 @@ def main(argv=None) -> int:
     print(smi.stdout.strip(), flush=True)
     runs = [("first", False), ("warm", False)] + ([("profiled", True)] if args.profile else [])
     for label, profile in runs:
-        res = synthetic_global.run(profile=profile)
+        res = synthetic_global.run(calibrated=args.calibrated, profile=profile)
         for line in describe(label, res):
             print(line, flush=True)
     return 0

@@ -37,6 +37,7 @@ import torch
 
 from pytheiasfm_tpu.ba import entry as jentry
 from pytheiasfm_tpu.ba import iterative_schur as jis
+from pytheiasfm_tpu.ba import lm as jlm
 from pytheiasfm_tpu.ba.lm import BundleAdjustmentOptions as JOptions
 from pytheiasfm_tpu.ba.lm import TrackParametrizationType as JTP
 from pytheiasfm_tpu.models.intrinsics import OptimizeIntrinsicsType as JOI
@@ -254,13 +255,14 @@ def test_entry_f64_field_by_field(fn, shared_group):
 
 
 def test_entry_f32_defaults():
-    """In f32 the LM stop falls on rounding noise, in both packages: near
-    the optimum a proposal predicts a decrease of 4e-8 of the cost, under
+    """In f32 the JAX package's LM stop falls on rounding noise: near the
+    optimum a proposal predicts a decrease of 4e-8 of the cost, under
     f32's resolution, and its measured change is noise of 2e-6 to 1.5e-5
     relative. The function-tolerance stop (1e-6) fires the first time the
-    noise falls under it: here after 7 iterations (JAX) and 23 (the port),
-    over eight scene seeds after 6-19 and 5-23. So the iteration counts
-    are not held; the final cost is, to 1e-4 relative (measured 1.2e-5)."""
+    noise falls under it: here after 7 iterations, over eight scene seeds
+    after 6-19. The port decides on f64 costs (`lm.run_lm`) and stops here
+    after 5. So the iteration counts are not held; the final cost is, to
+    1e-4 relative (measured 4.3e-7)."""
     jr, js, tr, ts = _entry_both("bundle_adjust_reconstruction", True, np.float32)
     assert ts.final_cost == pytest.approx(float(js.final_cost), rel=F32_COST_REL)
     np.testing.assert_allclose(tr.view_extrinsics, jr.view_extrinsics, rtol=0, atol=1e-3)
@@ -289,29 +291,46 @@ def test_view_and_track_entries():
 
 
 def test_what_is_not_ported_raises():
+    """A device mesh (ROADMAP item G1) raises; the dense Schur, the flat
+    kernel, the priors and the covariance run (`test_dispatch_matches_jax`,
+    `test_torch_dense_schur.py`, `test_torch_flat_ba.py`,
+    `test_torch_ba_priors_cov.py`)."""
     tr = convert.reconstruction(_entry_scene(True))
     _, topt = _reference_default_options()
-    calibrated = dataclasses.replace(topt, intrinsics_to_optimize=TOI.NONE,
-                                     track_parametrization_type=tlm.TrackParametrizationType.XYZW)
-    cases = [
-        (calibrated, "A7"),
-        (dataclasses.replace(topt, track_parametrization_type=(
-            tlm.TrackParametrizationType.INVERSE_DEPTH)), "A5b"),
-        (dataclasses.replace(topt, use_position_priors=True), "A5c"),
-        (dataclasses.replace(topt, mesh=object()), "G1"),
-    ]
-    for options, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            tentry.bundle_adjust_reconstruction(options, tr, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5b"):
-        tlm.bundle_adjust()
-    with pytest.raises(NotImplementedError, match="D1"):
-        tentry.bundle_adjust_views_with_cov(topt, [1], tr)
-    # Forced iterative Schur takes the calibrated problem.
-    forced = dataclasses.replace(calibrated,
-                                 linear_solver_type=tlm.LinearSolverType.ITERATIVE_SCHUR)
-    s = tentry.bundle_adjust_reconstruction(forced, tr, device="cpu")
-    assert s.success
+    with pytest.raises(NotImplementedError, match="G1"):
+        tentry.bundle_adjust_reconstruction(dataclasses.replace(topt, mesh=object()), tr,
+                                            device="cpu")
+    summary, covariances, vf = tentry.bundle_adjust_views_with_cov(topt, [1], tr,
+                                                                    device="cpu")
+    assert summary.success and covariances[1].shape == (6, 6) and vf > 0
+
+
+@pytest.mark.parametrize("route", ["dense", "iterative", "flat", "forced_iterative"])
+def test_dispatch_matches_jax(monkeypatch, route):
+    """The entry sends each problem to the JAX entry's kernel: calibrated
+    (frozen intrinsics, <= 1024 padded views) to the dense Schur; free
+    intrinsics, or a forced ITERATIVE_SCHUR, to the iterative Schur;
+    INVERSE_DEPTH tracks to the flat kernel (for a problem without a usable
+    slot layout, `test_torch_flat_ba.test_long_track_takes_the_flat_kernel`).
+    The container agrees field by field at 1e-7 (f64)."""
+    from test_torch_flat_ba import _assert_same_container, entry_both
+
+    jopt, topt = _reference_default_options()
+    calibrated = dict(intrinsics_to_optimize=JOI.NONE, track_parametrization_type=JTP.XYZW)
+    changes = {
+        "dense": calibrated,
+        "iterative": {},
+        "flat": dict(track_parametrization_type=JTP.INVERSE_DEPTH),
+        "forced_iterative": dict(calibrated, linear_solver_type=jlm.LinearSolverType.ITERATIVE_SCHUR),
+    }[route]
+    jopt = dataclasses.replace(jopt, **changes)
+    jr, js, tr, ts, calls = entry_both(monkeypatch, _entry_scene(True),
+                                       "bundle_adjust_reconstruction", jopt, _t_options(jopt))
+    want = "iterative" if route == "forced_iterative" else route
+    assert calls == [want] and ts.linear_solver == want
+    assert ts.num_iterations == int(js.num_iterations)
+    assert ts.final_cost == pytest.approx(float(js.final_cost), rel=COST_REL)
+    _assert_same_container(tr, jr)
 
 
 @pytest.fixture(scope="module")

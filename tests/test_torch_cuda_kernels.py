@@ -20,7 +20,10 @@ bundle adjustment and `estimate` (eager PyTorch, no hand-written kernel):
 BA at the reference-default options on a small reconstruction, card against
 CPU, final cost to 1e-4 relative (f32, sums in another order); `estimate`
 on the 8-view scene of `tests/test_global_estimator.py`, the same estimated
-views on the card as on the CPU.
+views on the card as on the CPU. The dense-Schur and flat kernels (with and
+without view priors) and the covariance entries, card against CPU: f64 the
+same LM iterations, the final cost and the covariance blocks to 1e-8
+relative; f32 the final cost to 1e-4 relative.
 """
 
 import copy
@@ -451,3 +454,71 @@ def test_bundle_adjustment_and_estimate_on_the_card_match_the_cpu(cuda):
     assert runs[0].success and runs[1].success
     assert runs[0].estimated_views == runs[1].estimated_views
     assert len(runs[0].estimated_views) == 8
+
+
+def _perturbed_reconstruction():
+    recon = synthetic.random_reconstruction(num_views=8, num_tracks=150, seed=5, pixel_noise=0.3)
+    gen = np.random.default_rng(9)
+    recon.view_extrinsics[1:, :3] += gen.normal(size=(7, 3)) * 0.02
+    recon.points[:, :3] += gen.normal(size=(150, 3)) * 0.02
+    for v in range(8):
+        recon.view_priors[v].position = recon.view_extrinsics[v, :3] + gen.normal(size=3) * 0.01
+        recon.view_priors[v].position_sqrt_information = np.eye(3) * 100.0
+    return recon
+
+
+@pytest.mark.parametrize("route,changes", [
+    ("dense", {}),
+    ("dense", dict(use_position_priors=True)),
+    ("flat", dict(track_parametrization_type=2)),  # INVERSE_DEPTH
+    ("flat", dict(track_parametrization_type=2, use_position_priors=True)),
+])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_dense_and_flat_bundle_adjustment_on_the_card_match_the_cpu(cuda, route, changes, dtype):
+    """The calibrated defaults (dense Schur) and INVERSE_DEPTH tracks (flat
+    kernel), with and without position priors, card against CPU: the same
+    kernel; f64 the same LM iterations and the final cost to 1e-8 relative,
+    f32 the final cost to 1e-4 relative (sums in another order)."""
+    from pytheiasfm_tpu_torch.ba.lm import BundleAdjustmentOptions, TrackParametrizationType
+
+    if "track_parametrization_type" in changes:
+        changes = dict(changes, track_parametrization_type=TrackParametrizationType(2))
+    options = BundleAdjustmentOptions(**changes)
+    recon = _perturbed_reconstruction()
+    summaries, states = [], []
+    for device in (cuda, "cpu"):
+        r = copy.deepcopy(recon)
+        summaries.append(ba_entry.bundle_adjust_reconstruction(options, r, dtype, device=device))
+        states.append(r)
+    card, cpu = summaries
+    assert card.linear_solver == cpu.linear_solver == route
+    assert card.success and cpu.success and card.final_cost < 0.5 * card.initial_cost
+    if dtype == np.float64:
+        assert card.num_iterations == cpu.num_iterations
+        assert abs(card.final_cost - cpu.final_cost) <= 1e-8 * cpu.final_cost
+        np.testing.assert_allclose(states[0].view_extrinsics, states[1].view_extrinsics,
+                                   rtol=0, atol=1e-6)
+    else:
+        assert abs(card.final_cost - cpu.final_cost) <= 1e-4 * cpu.final_cost
+
+
+@pytest.mark.parametrize("selected", [False, True])
+def test_covariance_on_the_card_matches_the_cpu(cuda, selected):
+    """`compute_reconstruction_covariance` (f64), the dense inverse and the
+    selected-block PCG, card against CPU: every block and the variance
+    factor to 1e-8 relative of the largest entry."""
+    from pytheiasfm_tpu_torch.ba.lm import BundleAdjustmentOptions
+
+    recon = _perturbed_reconstruction()
+    ba_entry.bundle_adjust_reconstruction(BundleAdjustmentOptions(), recon, np.float64,
+                                          device="cpu")
+    kw = dict(view_ids=[2, 5], track_ids=[3, 40]) if selected else {}
+    card, cpu = (ba_entry.compute_reconstruction_covariance(
+        BundleAdjustmentOptions(), recon, constant_views=(0, 1), device=device, **kw)
+        for device in (cuda, "cpu"))
+    assert abs(card[2] - cpu[2]) <= 1e-8 * cpu[2]
+    for got, want in zip(card[:2], cpu[:2]):
+        assert set(got) == set(want) and want
+        scale = max(np.abs(w).max() for w in want.values())
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-8 * scale)

@@ -10,11 +10,14 @@ estimated views; estimated track sets differing in at most 1% of the
 tracks; the port's positions, Sim(3)-aligned onto the JAX package's, within
 1e-4 x the ring radius (10); the ATE (Sim(3)-aligned to ground truth, mean)
 under the JAX test's own bars (0.05 clean, 0.3 at 1 deg). f32 BA
-trajectories differ in rounding, so converged states are compared.
+trajectories differ in rounding, so converged states are compared. The
+same scenes calibrated (constant intrinsics, XYZW tracks: BA by the dense
+Schur) are held to the same bars.
 
-The `slow` test runs `synthetic_global.run()` at full size (553 views,
-50,000 tracks) in both packages and prints the JAX package's CPU results
-that `chip_smoke.py` holds the card to:
+The `slow` tests run `synthetic_global.run()` and `run(calibrated=True)` at
+full size (553 views, 50,000 tracks) in both packages and print the JAX
+package's CPU results that `chip_smoke.py` holds the card to (phases 5 and
+6):
 
     python -m pytest tests/test_torch_global_estimator.py -m slow -s
 """
@@ -27,12 +30,16 @@ import numpy as np
 import pytest
 import torch
 
+from pytheiasfm_tpu.ba.lm import TrackParametrizationType as JTP
+from pytheiasfm_tpu.models.intrinsics import OptimizeIntrinsicsType as JOI
 from pytheiasfm_tpu.pipelines import synthetic_global as jsg
 from pytheiasfm_tpu.sfm.estimator_options import ReconstructionEstimatorOptions as JOptions
 from pytheiasfm_tpu.sfm.global_estimator import GlobalReconstructionEstimator as JEstimator
 from pytheiasfm_tpu.transforms import alignment as jalign
 from pytheiasfm_tpu.utils import synthetic as jsyn
 from pytheiasfm_tpu_torch import convert
+from pytheiasfm_tpu_torch.ba.lm import TrackParametrizationType as TTP
+from pytheiasfm_tpu_torch.models.intrinsics import OptimizeIntrinsicsType as TOI
 from pytheiasfm_tpu_torch.pipelines import synthetic_global as tsg
 from pytheiasfm_tpu_torch.sfm import estimator_options as topts
 from pytheiasfm_tpu_torch.sfm.global_estimator import GlobalReconstructionEstimator
@@ -98,6 +105,44 @@ def test_estimate_matches_jax(runs):
     assert gap <= POSITION_TOL, gap
     assert _ate(tr, gt_ext) < ATE_BAR[noise]
     assert tsum.message == f"estimated 8 views, {len(tsum.estimated_tracks)} tracks"
+
+
+@pytest.fixture(scope="module", params=[0.0, 1.0])
+def calibrated_runs(request):
+    """The same scenes with constant intrinsics and XYZW tracks: BA takes
+    the dense Schur in both packages."""
+    noise = request.param
+    recon, graph, gt_ext = _scene(noise)
+    trecon, tgraph = convert.reconstruction(recon), convert.view_graph(graph)
+    options = dict(min_num_two_view_inliers=20, num_retriangulation_iterations=1)
+    jsum = JEstimator(JOptions(**options, intrinsics_to_optimize=JOI.NONE,
+                               track_parametrization_type=JTP.XYZW)).estimate(graph, recon)
+    topt = topts.ReconstructionEstimatorOptions(
+        **options, intrinsics_to_optimize=TOI.NONE,
+        track_parametrization_type=TTP.XYZW)
+    est = GlobalReconstructionEstimator(topt, device="cpu")
+    tsum = est.estimate(tgraph, trecon)
+    return noise, gt_ext, (recon, jsum), (trecon, tsum, est)
+
+
+def test_calibrated_estimate_matches_jax(calibrated_runs):
+    """Bars of `test_estimate_matches_jax`; every BA round takes the dense
+    Schur, and the intrinsics stay as they were."""
+    noise, gt_ext, (jr, jsum), (tr, tsum, est) = calibrated_runs
+    assert tsum.success and jsum.success, tsum.message
+    assert tsum.estimated_views == jsum.estimated_views
+    assert len(tsum.estimated_views) == 8
+    sym = tsum.estimated_tracks ^ jsum.estimated_tracks
+    assert len(sym) <= TRACK_SHARE_TOL * tr.num_tracks(), len(sym)
+    ids = sorted(tsum.estimated_views)
+    mine = torch.as_tensor(tr.view_extrinsics[ids, :3])
+    want = torch.as_tensor(jr.view_extrinsics[ids, :3])
+    R, t, s = talign.align_point_clouds_umeyama(mine, want)
+    gap = float(torch.linalg.norm(talign.sim3_transform_points(mine, R, t, s) - want, dim=-1).max())
+    assert gap <= POSITION_TOL, gap
+    assert _ate(tr, gt_ext) < ATE_BAR[noise]
+    assert all(r["solver"] == "dense" for r in est.bundle_adjustment_rounds)
+    np.testing.assert_array_equal(tr.intrinsics, convert.reconstruction(_scene(noise)[0]).intrinsics)
 
 
 def test_estimate_reports_its_stages(runs):
@@ -174,8 +219,11 @@ def test_create_reconstruction_estimator():
             reconstruction_estimator_type=topts.ReconstructionEstimatorType[kind])
         with pytest.raises(NotImplementedError, match="C1"):
             create_reconstruction_estimator(options, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tsg.run(V=24, T=1500, calibrated=True, device="cpu")
+    # The calibrated configuration runs, through the dense Schur.
+    got = tsg.run(V=24, T=1500, calibrated=True, device="cpu")
+    assert got["success"] and got["views"] == 24
+    assert got["ba_rounds"] and {r["solver"] for r in got["ba_rounds"]} == {"dense"}
+    assert got["median_pos_err"] < 0.01
 
 
 def test_estimate_stops_without_edges():
@@ -253,6 +301,31 @@ def test_full_size_run_matches_jax():
           f"{got['estimated_tracks']}, median position error {got['median_pos_err']!r}, mean "
           f"{got['mean_pos_err']!r}; BA rounds: {got['ba_rounds']}")
     assert got["success"] and got["views"] == want["views"] == 553
+    assert abs(got["estimated_tracks"] - want["estimated_tracks"]) <= 0.005 * want[
+        "estimated_tracks"]
+    assert got["median_pos_err"] == pytest.approx(want["median_pos_err"], rel=0.02, abs=1e-6)
+
+
+@pytest.mark.slow
+def test_full_size_calibrated_run_matches_jax():
+    """`synthetic_global.run(calibrated=True)` at 553 views in both packages
+    on the CPU (the dense Schur; the JAX kernel's one-hot form costs about
+    7e12 operations an LM iteration, so minutes); prints the JAX package's
+    numbers that `chip_smoke.py` phase 6 holds the card to."""
+    t0 = time.perf_counter()
+    want = jax_run(calibrated=True)
+    t_jax = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = tsg.run(calibrated=True, device="cpu")
+    t_port = time.perf_counter() - t0
+    print(f"\n[553 views, calibrated] JAX CPU ({t_jax:.1f} s): views {want['views']}, estimated "
+          f"tracks {want['estimated_tracks']}, median position error {want['median_pos_err']!r}, "
+          f"mean {want['mean_pos_err']!r}; BA: {want['ba_log']}")
+    print(f"[553 views, calibrated] port CPU ({t_port:.1f} s): views {got['views']}, estimated "
+          f"tracks {got['estimated_tracks']}, median position error {got['median_pos_err']!r}, "
+          f"mean {got['mean_pos_err']!r}; BA rounds: {got['ba_rounds']}")
+    assert got["success"] and got["views"] == want["views"] == 553
+    assert {r["solver"] for r in got["ba_rounds"]} == {"dense"}
     assert abs(got["estimated_tracks"] - want["estimated_tracks"]) <= 0.005 * want[
         "estimated_tracks"]
     assert got["median_pos_err"] == pytest.approx(want["median_pos_err"], rel=0.02, abs=1e-6)

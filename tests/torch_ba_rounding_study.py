@@ -124,10 +124,10 @@ class Scene:
                             options=_t_options(ONE_STEP))
         tis._pcg, torch.linalg.inv_ex = keep, inv_ex
         try:
-            new, _, _ = prob.lm_step(st, torch.tensor(mu, dtype=torch.float64))
+            new, _, _, n_pcg = prob.lm_step(st, torch.tensor(mu, dtype=torch.float64))
         finally:
             tis._pcg, torch.linalg.inv_ex = pcg, inv_now
-        return float(prob.cost_of(new)), prob.pcg_iterations, seen["Mv"].numpy(), seen["g"].numpy()
+        return float(prob.cost_of(new)), n_pcg, seen["Mv"].numpy(), seen["g"].numpy()
 
     def jax_full(self, points):
         args = list(self.args)
