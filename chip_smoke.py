@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's matching slice and global SfM on one CUDA card.
+"""Drive the PyTorch/CUDA port's matching slice, global SfM and images pipeline on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -59,7 +59,19 @@ Phases, each printed (flushed) as it ends:
      `compute_reconstruction_covariance` of two views (f64, the
      selected-block PCG: finite positive-definite blocks), their seconds
      printed; K1's and K2's launch counts on this path are printed;
-  7. print a {"kernels": [...]} line, the card's name and power limit, and
+  7. images to reconstruction: render the 32-view scene of
+     `tools.image_scene` (1024x768, seed 0) on the host, check its SHA-256
+     against the one recorded with the JAX package's constants, write it
+     as PGM files and run `pipelines.images.run_images_pipeline` on them at
+     its defaults on the card, a first and a warm run, each with K1's and
+     K2's launch counts set to 0 just before and read just after; each run
+     prints its phase seconds, counts, launches and peak memory and is held
+     to the JAX package's CPU results (views, tracks, median rotation and
+     position errors against ground truth); then SIFT on the card against
+     SIFT on the CPU (views 0 and 1), K1 on the scene's SIFT descriptors
+     against its plain version (8 pairs) and timed at the path's shape (all
+     496 pairs), and GraphMatch on the card against the CPU;
+  8. print a {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 It imports nothing of JAX. Without a CUDA card, or outside the repository,
@@ -73,6 +85,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -87,7 +100,9 @@ from pytheiasfm_tpu_torch.matching import (
 from pytheiasfm_tpu_torch import native
 from pytheiasfm_tpu_torch.ba import entry as ba_entry
 from pytheiasfm_tpu_torch.ba.lm import BundleAdjustmentOptions, TrackParametrizationType
+from pytheiasfm_tpu_torch.features import SiftParams, detect_and_describe, load_grayscale
 from pytheiasfm_tpu_torch.global_pose import filters as gp_filters
+from pytheiasfm_tpu_torch.matching.graph_match import graph_match
 from pytheiasfm_tpu_torch.matching.guided_epipolar import guided_epipolar_match
 from pytheiasfm_tpu_torch.ops import rotation as rotops
 from pytheiasfm_tpu_torch.pipelines import synthetic_global
@@ -95,6 +110,8 @@ from pytheiasfm_tpu_torch.sfm.reconstruction import CameraIntrinsicsPrior
 from pytheiasfm_tpu_torch.tools import exp_matcher_roofline as k2
 from pytheiasfm_tpu_torch.tools import global_pose as gp
 from pytheiasfm_tpu_torch.tools import global_sfm
+from pytheiasfm_tpu_torch.tools import image_scene
+from pytheiasfm_tpu_torch.tools import images_sfm
 from pytheiasfm_tpu_torch.tools import ring_scene as rs
 from pytheiasfm_tpu_torch.utils import counters, cuda_build
 from pytheiasfm_tpu_torch.utils.timing import cuda_time_ms
@@ -191,6 +208,44 @@ JAX_CPU_CAL_MEAN_POSITION_ERR = 0.0030832037129150743
 JAX_CPU_CAL_BA_ROUNDS = "round 0: 4 LM iterations, cost 5.646e+04 -> 5.153e+04, 0 outliers"
 # The views whose covariance phase 6 computes (views 0 and 1 fix the gauge).
 COVARIANCE_VIEWS = [100, 300]
+
+# Images to reconstruction (phase 7). The JAX package's own results on the
+# CPU for `run_images_pipeline` at its defaults on the rendered scene
+# (`tools.image_scene.render()`: 32 views, 1024x768, seed 0), recorded by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_images_pipeline.py -m slow -s
+# (JAX 0.9 on the host CPU of an H100 machine; no TPU number), with the
+# SHA-256 of the images they were taken on: a scene that renders otherwise
+# makes them void. The test runs the matcher's RANSAC key 0 (the package's
+# own) and key 1: on this scene the draws alone move the JAX package's
+# estimated tracks by 4.4% (1326 and 1268; medians 0.944 and 0.549 deg,
+# 0.01549 and 0.01371), while a torch generator draws otherwise again. Each
+# run on the card is held to at least 30 of 32 views and at least the JAX
+# count less one; its estimated tracks within 5% of the range of the two
+# JAX runs; its median rotation error (deg, after the best global rotation)
+# and median position error (after Umeyama, a share of the ring radius)
+# each at most 1.25x those of the JAX package's own key plus 1e-3 deg and
+# 1e-4.
+JAX_CPU_IMAGES_SHA256 = "4356f9d9020d728b61a46925775060bdffefe1144a9f428982f250130f1ccdc6"
+JAX_CPU_IMAGES_VIEWS = 32
+JAX_CPU_IMAGES_TRACKS = (1326, 1268)  # RANSAC keys 0 and 1
+JAX_CPU_IMAGES_MEDIAN_ROTATION_DEG = 0.943697683066461
+JAX_CPU_IMAGES_MEDIAN_POSITION = 0.015494652014896141
+IMAGES_MIN_VIEWS = 30
+IMAGES_TRACK_TOL_REL = 0.05
+IMAGES_ERR_RATIO = 1.25
+IMAGES_ROTATION_SLACK_DEG = 1e-3
+IMAGES_POSITION_SLACK = 1e-4
+# SIFT on the card against SIFT on the CPU (the blur rounds differently, so
+# a DoG extremum at the contrast threshold can flip): shares, not identity.
+# A response is a difference of two blurred levels near 0.5, so its rounding
+# is absolute (a few f32 ulps of 0.5): the responses are held relative to
+# the largest one. Elementwise, the weakest responses (0.015) reach 1.1e-5
+# between the port and the JAX package, both on the CPU.
+SIFT_VIEWS = [0, 1]
+SIFT_MIN_SHARED = 0.99
+SIFT_DESC_TOL = 1e-4
+SIFT_RESP_TOL_REL = 1e-5
+GRAPH_MATCH_NEIGHBORS = 8
 
 
 def log(*args):
@@ -763,6 +818,144 @@ def phase_calibrated_sfm():
         raise RuntimeError("calibrated global SfM checks failed: " + "; ".join(failures))
 
 
+def _sift_keyed(out):
+    return {(float(x), float(y), float(sc)): i for i, ((x, y), sc) in enumerate(zip(out[0], out[1]))}
+
+
+def check_sift(paths):
+    """SIFT on the card against SIFT on the CPU on SIFT_VIEWS: the share of
+    keypoints equal (position and level), the descriptors and responses of
+    the common ones. Returns the failures."""
+    params = SiftParams()
+    failures = []
+    for v in SIFT_VIEWS:
+        image = load_grayscale(paths[v])
+        card = detect_and_describe(image, params)  # the user's default device: the card
+        ms = cuda_time_ms(lambda: detect_and_describe(image, params), iters=3)
+        cpu = detect_and_describe(image, params, device="cpu")
+        kc, kh = _sift_keyed(card), _sift_keyed(cpu)
+        common = sorted(set(kc) & set(kh))
+        share = len(common) / max(len(kc), len(kh), 1)
+        ic = [kc[c] for c in common]
+        ih = [kh[c] for c in common]
+        if not common:
+            failures.append(f"SIFT view {v}: no keypoint in common")
+            continue
+        desc_err = float(np.abs(card[2][ic] - cpu[2][ih]).max())
+        resp_delta = np.abs(card[3][ic] - cpu[3][ih])
+        resp_err = float(resp_delta.max() / np.abs(cpu[3][ih]).max())
+        log(f"[images] SIFT view {v}: card {len(kc)} keypoints ({ms:.1f} ms an image), CPU "
+            f"{len(kh)}; {share:.4%} equal (bar {SIFT_MIN_SHARED:.0%}); common keypoints: "
+            f"descriptors max |delta| {desc_err:.3e} (bar {SIFT_DESC_TOL:g}), responses "
+            f"max |delta| / max response {resp_err:.3e} (bar {SIFT_RESP_TOL_REL:g}; "
+            f"elementwise up to {float((resp_delta / np.abs(cpu[3][ih])).max()):.3e})")
+        if share < SIFT_MIN_SHARED or not desc_err <= SIFT_DESC_TOL or not (
+                resp_err <= SIFT_RESP_TOL_REL):
+            failures.append(f"SIFT view {v}: card against CPU out of its bars")
+    return failures
+
+
+def _images_failures(label, res):
+    st = res["stats"]
+    failures = []
+    min_views = max(IMAGES_MIN_VIEWS, JAX_CPU_IMAGES_VIEWS - 1)
+    if st["models"] < 1:
+        failures.append(f"{label}: no model")
+    if st["views_estimated"] < min_views:
+        failures.append(f"{label}: {st['views_estimated']} views estimated (bar {min_views})")
+    low = (1 - IMAGES_TRACK_TOL_REL) * min(JAX_CPU_IMAGES_TRACKS)
+    high = (1 + IMAGES_TRACK_TOL_REL) * max(JAX_CPU_IMAGES_TRACKS)
+    if not low <= st["tracks_estimated"] <= high:
+        failures.append(f"{label}: {st['tracks_estimated']} tracks estimated, JAX CPU "
+                        f"{JAX_CPU_IMAGES_TRACKS} (bar {low:.1f}..{high:.1f})")
+    for name, got, want, slack in (
+            ("rotation", res["median_rotation_deg"], JAX_CPU_IMAGES_MEDIAN_ROTATION_DEG,
+             IMAGES_ROTATION_SLACK_DEG),
+            ("position", res["median_position_share"], JAX_CPU_IMAGES_MEDIAN_POSITION,
+             IMAGES_POSITION_SLACK)):
+        if not got <= IMAGES_ERR_RATIO * want + slack:
+            failures.append(f"{label}: median {name} error {got!r}, JAX CPU {want!r}")
+    if res["k1_launches"] < 1:
+        failures.append(f"{label}: K1 was not launched")
+    return failures
+
+
+def phase_images():
+    """Phase 7: `run_images_pipeline` on the rendered 32-view scene on the
+    card, first and warm, held to the JAX package's CPU results; then SIFT,
+    K1 and GraphMatch on the card against their CPU or plain versions.
+    Returns K1's measurements on this path."""
+    t0 = time.perf_counter()
+    images, extrinsics = image_scene.render()
+    sha = image_scene.images_sha256(images)
+    log(f"[images] scene: {len(images)} views {images.shape[2]}x{images.shape[1]}, rendered "
+        f"in {time.perf_counter() - t0:.1f} s; sha256 {sha}")
+    if sha != JAX_CPU_IMAGES_SHA256:
+        raise RuntimeError(f"the rendered scene's SHA-256 is {sha}, not the "
+                           f"{JAX_CPU_IMAGES_SHA256} of the JAX constants: they no longer apply")
+    log(f"[images] JAX CPU: {JAX_CPU_IMAGES_VIEWS} views, {JAX_CPU_IMAGES_TRACKS} tracks "
+        f"estimated (RANSAC keys 0, 1), median rotation error {JAX_CPU_IMAGES_MEDIAN_ROTATION_DEG!r} deg, median "
+        f"position error {JAX_CPU_IMAGES_MEDIAN_POSITION!r} x the ring radius")
+    failures, launches, k2_launches = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = image_scene.write_views(tmp, images)
+        for label in ("first", "warm"):
+            k2.matmul_rowmin.launches = 0
+            res = images_sfm.run(paths, extrinsics)  # the user's default device: the card
+            for line in images_sfm.describe(f"images {label}", res):
+                log(line)
+            log(f"[images {label}] K2 launches {k2.matmul_rowmin.launches}")
+            failures += _images_failures(f"images {label}", res)
+            launches.append(res["k1_launches"])
+            k2_launches.append(k2.matmul_rowmin.launches)
+            del res
+        failures += check_sift(paths)
+
+        # The scene's SIFT descriptors (the pipeline's cut), on the card.
+        t0 = time.perf_counter()
+        matcher = FeatureMatcher(FeatureMatcherOptions(max_num_features=2048))
+        global_descs = []
+        for path in paths:
+            kp, _, desc, _ = detect_and_describe(load_grayscale(path), SiftParams())
+            kp, desc = kp[:2048], desc[:2048]
+            matcher.add_image(path.rsplit("/", 1)[-1], kp, desc)
+            g = desc.mean(axis=0)
+            global_descs.append(g / max(np.linalg.norm(g), 1e-12))
+    log(f"[images] SIFT of the {len(paths)} views on the card: {time.perf_counter() - t0:.2f} s")
+
+    # GraphMatch on the card against the CPU.
+    global_descs = np.asarray(global_descs)
+    card_pairs = graph_match(global_descs, GRAPH_MATCH_NEIGHBORS)
+    cpu_pairs = graph_match(global_descs, GRAPH_MATCH_NEIGHBORS, device="cpu")
+    log(f"[images] GraphMatch (k = {GRAPH_MATCH_NEIGHBORS}): card {len(card_pairs)} pairs, "
+        f"CPU {len(cpu_pairs)}, {len(set(card_pairs) ^ set(cpu_pairs))} differ")
+    if card_pairs != cpu_pairs:
+        failures.append("GraphMatch: the card's pair set differs from the CPU's")
+
+    # K1 on the scene's descriptors: checked on 8 pairs, timed at the
+    # path's shape (all 496 pairs).
+    d1, d2, m1, m2, _, _ = matcher.descriptor_batch(matcher.pairs())
+    full = sm.streaming_inputs(d1, d2, m1, m2)
+    del d1, d2
+    check = check_top2([x[:8] for x in full], "the rendered scene's first 8 pairs")
+    P, N, D = full[0].shape
+    ms = cuda_time_ms(lambda: sm.streaming_top2(*full), iters=5, warmup=1)
+    chunks = [[x[i:i + 8] for x in full] for i in range(0, P, 8)]
+
+    def plain_all():
+        for c in chunks:
+            sm.streaming_top2_reference(*c)
+
+    plain_ms = cuda_time_ms(plain_all, iters=1, warmup=1)
+    bound_ms, bound_by, terms = top2_bound_ms(P, N, D)
+    log(f"[k1] images path P={P} N={N} D={D}: kernel {ms:.3f} ms, plain (8-pair blocks) "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({terms})")
+    if failures:
+        raise RuntimeError("images pipeline checks failed: " + "; ".join(failures))
+    return dict(launches=launches[0], k2_launches=k2_launches[0], check=check, shape=[P, N, D],
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke.py: no CUDA card; this script needs one")
@@ -803,7 +996,11 @@ def main() -> int:
     # covariance.
     phase_calibrated_sfm()
 
-    # 7. Summary lines.
+    # 7. Images to reconstruction at full width.
+    im = phase_images()
+    k1_checks.append(im["check"])
+
+    # 8. Summary lines.
     d128 = next(d for d in rowmin["depths"] if d["D"] == 128)
     kernels = [
         dict(
@@ -820,6 +1017,12 @@ def main() -> int:
             bound_by=sl["bound_by"],
             library_ms=None,
             shape=sl["shape"],
+            images_launches=im["launches"],
+            images_shape=im["shape"],
+            images_ms=im["ms"],
+            images_plain_ms=im["plain_ms"],
+            images_bound_ms=im["bound_ms"],
+            images_bound_by=im["bound_by"],
             **k1,
         ),
         dict(
@@ -836,6 +1039,7 @@ def main() -> int:
             library_ms=d128["library_ms"],
             shape=[k2.P, k2.N, 128],
             by_depth=rowmin["depths"],
+            images_launches=im["k2_launches"],
         ),
     ]
     log(json.dumps({"kernels": kernels}))

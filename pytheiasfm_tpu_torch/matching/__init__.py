@@ -19,6 +19,7 @@ from .streaming_matcher import (  # noqa: F401
     streaming_top2_reference,
 )
 from .matcher import BruteForceFeatureMatcher, FeatureMatcher  # noqa: F401
+from .graph_match import graph_match  # noqa: F401
 from .database import (  # noqa: F401
     FeaturesAndMatchesDatabase,
     InMemoryFeaturesAndMatchesDatabase,

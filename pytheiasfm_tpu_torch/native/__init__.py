@@ -2,14 +2,14 @@
 
 The port's own copy of the JAX package's `native/` (`graphcore.cpp`:
 union-find components, as the reference builds tracks; greedy MFAS
-ordering, `filter_view_pairs_from_relative_translation.cc:165`). Only the
-MFAS ordering is bound: the components come with track building (ROADMAP
-item A4), and are held against `sfm.view_graph.UnionFind` then. The
-library is built with the system `g++` into `pytheiasfm_tpu_torch/_build/`,
-named by a hash of the source and the flags, so an edited source is
-rebuilt; never at import. A failed build raises: there is no quiet
-fallback. The numpy `math.graph.mfas_ordering_reference` is the plain
-version the tests hold it against.
+ordering, `filter_view_pairs_from_relative_translation.cc:165`). Both are
+bound: the MFAS ordering (1DSfM's) and the components (the track
+builder's). The library is built with the system `g++` into
+`pytheiasfm_tpu_torch/_build/`, named by a hash of the source and the
+flags, so an edited source is rebuilt; never at import. A failed build raises: there is no quiet
+fallback. The numpy `math.graph.mfas_ordering_reference` and
+`sfm.view_graph.UnionFind` are the plain versions the tests hold them
+against.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["build", "mfas_ordering"]
+__all__ = ["build", "mfas_ordering", "uf_components"]
 
 _SRC = Path(__file__).resolve().parent / "graphcore.cpp"
 BUILD_DIR = _SRC.parent.parent / "_build"
@@ -78,6 +78,8 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_int64, ctypes.c_int64, i64p, i64p, f64p, i64p,
             ]
             lib.mfas_ordering.restype = None
+            lib.uf_components.argtypes = [ctypes.c_int64, ctypes.c_int64, i64p, i64p, i64p]
+            lib.uf_components.restype = None
             _lib = lib
         return _lib
 
@@ -105,5 +107,20 @@ def mfas_ordering(num_nodes: int, src, dst, weights) -> np.ndarray:
     _load().mfas_ordering(
         num_nodes, len(s), _ptr(s, ctypes.c_int64), _ptr(d, ctypes.c_int64),
         _ptr(w, ctypes.c_double), _ptr(out, ctypes.c_int64),
+    )
+    return out
+
+
+def uf_components(num_nodes: int, edges_a, edges_b) -> np.ndarray:
+    """Connected components over an edge list: the root of each node's
+    component (union by size, path compression; `theia::ConnectedComponents`)."""
+    a = _node_ids(edges_a, num_nodes)
+    b = _node_ids(edges_b, num_nodes)
+    if len(a) != len(b):
+        raise ValueError("edges_a and edges_b differ in length")
+    out = np.empty(num_nodes, np.int64)
+    _load().uf_components(
+        num_nodes, len(a), _ptr(a, ctypes.c_int64), _ptr(b, ctypes.c_int64),
+        _ptr(out, ctypes.c_int64),
     )
     return out

@@ -1,1 +1,2 @@
-"""End-to-end scenes: the synthetic global-SfM scene (`synthetic_global.py`)."""
+"""End-to-end pipelines: the synthetic global-SfM scene
+(`synthetic_global.py`) and images to reconstruction (`images.py`)."""

@@ -333,19 +333,29 @@ class Reconstruction:
             sub.view_extrinsics[nv] = self.view_extrinsics[v]
             sub.view_estimated[nv] = self.view_estimated[v]
             vid_map[v] = nv
-        tid_map = {}
+        # Every track seen by two kept views, with those observations, in one
+        # bulk append (the rows of `add_track` + `add_observation` in turn).
+        kept_view = np.zeros(self.num_views(), bool)
+        kept_view[list(vid_map)] = True
+        tracks, rows = [], []
         for t in range(self.num_tracks()):
-            rows = [r for r in self._track_obs[t] if int(self.obs_view[r]) in vid_map]
-            if len(rows) < 2:
-                continue
-            nt = sub.add_track(self.points[t] if self.track_estimated[t] else None)
-            sub.track_estimated[nt] = self.track_estimated[t]
-            tid_map[t] = nt
-            for r in rows:
-                sub.add_observation(
-                    vid_map[int(self.obs_view[r])],
-                    nt,
-                    self.obs_uv[r],
-                    self.obs_sqrt_inv_cov[r],
-                )
+            r = [r for r in self._track_obs[t] if kept_view[self.obs_view[r]]]
+            if len(r) >= 2:
+                tracks.append(t)
+                rows.append(r)
+        if not tracks:
+            return sub
+        new_ids = sub.add_tracks_bulk(len(tracks))
+        est = self.track_estimated[tracks]
+        sub.points[new_ids] = np.where(est[:, None], self.points[tracks], 0.0)
+        sub.track_estimated[new_ids] = est
+        flat = np.concatenate(rows)
+        view_map = np.full(self.num_views(), -1, np.int32)
+        view_map[list(vid_map)] = list(vid_map.values())
+        sub.add_observations_bulk(
+            view_map[self.obs_view[flat]],
+            np.repeat(new_ids, [len(r) for r in rows]),
+            self.obs_uv[flat],
+            self.obs_sqrt_inv_cov[flat],
+        )
         return sub
