@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's matching slice, global SfM and images pipeline on one CUDA card.
+"""Drive the PyTorch/CUDA port on one CUDA card: matching, global SfM, images, camera models.
 
     python3 chip_smoke.py
 
@@ -71,7 +71,26 @@ Phases, each printed (flushed) as it ends:
      SIFT on the CPU (views 0 and 1), K1 on the scene's SIFT descriptors
      against its plain version (8 pairs) and timed at the path's shape (all
      496 pairs), and GraphMatch on the card against the CPU;
-  8. print a {"kernels": [...]} line, the card's name and power limit, and
+  8. global SfM at the repository's largest scene:
+     `synthetic_global.run(V=2152, T=100_000)` on the card, first and warm,
+     where the iterative Schur's two-level preconditioner switches on; each
+     run prints its stage seconds, peak device memory, each BA round (LM
+     iterations, PCG steps, costs, outliers) and the iterative kernel's size
+     gates (padded V, T, L, the coarse level, its aggregates and track
+     stride), requires the coarse level, and is held to the JAX package's
+     CPU results as in phase 5;
+  9. global SfM on the contaminated graph: `estimate` on the 553-view scene
+     after `tools.global_pose.contaminate` (15% of its edges), held to the
+     JAX package's CPU results on the same graph as in phase 5, each
+     filter's removed edges equal to the JAX package's;
+ 10. the camera models: one bundle adjustment of `tools.camera_rig`'s rig
+     (one intrinsics group for each of the eight camera models, 64 views
+     and 4,000 tracks a group, perturbed, free focal length and radial
+     distortion, f64) on the card, held to the JAX package's CPU results (final
+     cost, each group's median position error against ground truth);
+     phases 8-10 each print K1's and K2's launch counts on their path (no
+     hand-written kernel runs there);
+ 11. print a {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 It imports nothing of JAX. Without a CUDA card, or outside the repository,
@@ -107,6 +126,7 @@ from pytheiasfm_tpu_torch.matching.guided_epipolar import guided_epipolar_match
 from pytheiasfm_tpu_torch.ops import rotation as rotops
 from pytheiasfm_tpu_torch.pipelines import synthetic_global
 from pytheiasfm_tpu_torch.sfm.reconstruction import CameraIntrinsicsPrior
+from pytheiasfm_tpu_torch.tools import camera_rig
 from pytheiasfm_tpu_torch.tools import exp_matcher_roofline as k2
 from pytheiasfm_tpu_torch.tools import global_pose as gp
 from pytheiasfm_tpu_torch.tools import global_sfm
@@ -206,6 +226,61 @@ JAX_CPU_CAL_ESTIMATED_TRACKS = 49994
 JAX_CPU_CAL_MEDIAN_POSITION_ERR = 0.002933223924352544
 JAX_CPU_CAL_MEAN_POSITION_ERR = 0.0030832037129150743
 JAX_CPU_CAL_BA_ROUNDS = "round 0: 4 LM iterations, cost 5.646e+04 -> 5.153e+04, 0 outliers"
+# Global SfM at the repository's largest scene (phase 8): `bench.py`'s
+# `synthetic_global.run(V=2152, T=100_000, seed=0)` at the reference-default
+# options, where the iterative Schur's two-level preconditioner switches on
+# (2304 padded views). The JAX package's own results on the CPU, recorded by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_global_estimator.py -m slow -s -k scale_run
+# (JAX 0.9 on the host CPU of an H100 machine; no TPU number), held by the
+# bars of phase 5: all views, tracks within 0.5%, the median position error
+# within 2% (+1e-6); the warm run to the first within the same bars.
+SCALE_SCENE = dict(V=2152, T=100_000, seed=0)
+JAX_CPU_SCALE_VIEWS = 2152
+JAX_CPU_SCALE_ESTIMATED_TRACKS = 99378
+JAX_CPU_SCALE_MEDIAN_POSITION_ERR = 0.006451457301437564
+JAX_CPU_SCALE_MEAN_POSITION_ERR = 0.0069862481277261305
+JAX_CPU_SCALE_LM_ITERATIONS = (11, 2)  # a BA round; printed beside the card's, not a bar
+JAX_CPU_SCALE_BA_ROUNDS = ("round 0: 11 LM iterations, cost 1.852e+05 -> 1.014e+05, 45 outliers, "
+                           "670 tracks retriangulated; round 1: 2 LM iterations, cost 1.014e+05 "
+                           "-> 1.014e+05, 15 outliers")
+JAX_CPU_SCALE_SIZE_GATES = "V 2304, T 106496, L 6, use_coarse True, group 16, Vc 144, coarse_stride 1"
+
+# Global SfM on the contaminated graph (phase 9): `estimate` at the
+# reference-default options on the 553-view scene after
+# `tools.global_pose.contaminate` (15% of the edges, as phase 4). The JAX
+# package's own results on the CPU on the same graph, recorded by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_global_estimator.py -m slow -s -k contaminated_full_size
+# (JAX 0.9 on the host CPU of an H100 machine), held by the bars of phase 5
+# and each filter's removed edges equal.
+JAX_CPU_CONT_ESTIMATED_TRACKS = 49994
+JAX_CPU_CONT_MEDIAN_POSITION_ERR = 0.002906645895875715
+JAX_CPU_CONT_MEAN_POSITION_ERR = 0.003042912076578154
+JAX_CPU_CONT_REMOVED = {"orientation filter": 1668, "1DSfM": 2}
+JAX_CPU_CONT_BA_ROUNDS = "round 0: 5 LM iterations, cost 5.764e+04 -> 5.153e+04, 0 outliers"
+
+# The camera-model rig (phase 10): `tools.camera_rig.run_rig()`, the
+# eight models, 64 views and 4,000 tracks each, one BA in f64
+# (`camera_rig.RIG_DTYPE`: in f32 the LM stop falls on rounding noise) with
+# free focal length and radial distortion. The JAX package's own results
+# on the CPU for the same perturbed rig, recorded by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_global_estimator.py -m slow -s -k eight_model_rig
+# (JAX 0.9 on the host CPU of an H100 machine): the final cost held within
+# 0.1%, each group's median position error against ground truth within 2%
+# (+1e-6); the LM iterations printed beside the card's.
+RIG_COST_TOL_REL = 1e-3
+JAX_CPU_RIG_ITERATIONS = 6
+JAX_CPU_RIG_FINAL_COST = 479385.0784595234
+JAX_CPU_RIG_MEDIANS = {
+    "PINHOLE": 0.0017226667197807492,
+    "PINHOLE_RADIAL_TANGENTIAL": 0.001099941651449064,
+    "FISHEYE": 0.002642396059468719,
+    "FOV": 0.0013558731511810274,
+    "DIVISION_UNDISTORTION": 0.0009559477009588844,
+    "DOUBLE_SPHERE": 0.0008605530871061057,
+    "EXTENDED_UNIFIED": 0.0008464641200766062,
+    "ORTHOGRAPHIC": 0.004063860981755044,
+}
+
 # The views whose covariance phase 6 computes (views 0 and 1 fix the gauge).
 COVARIANCE_VIEWS = [100, 300]
 
@@ -708,12 +783,12 @@ def phase_global_pose(dev):
         raise RuntimeError("global-pose checks failed: " + "; ".join(failures))
 
 
-def _sfm_failures(label, res, tracks_want, median_want):
+def _sfm_failures(label, res, tracks_want, median_want, views_want=JAX_CPU_SFM_VIEWS):
     failures = []
     if not res["success"]:
         failures.append(f"{label}: summary.success is False")
-    if res["views"] != JAX_CPU_SFM_VIEWS:
-        failures.append(f"{label}: {res['views']}/{JAX_CPU_SFM_VIEWS} views estimated")
+    if res["views"] != views_want:
+        failures.append(f"{label}: {res['views']}/{views_want} views estimated")
     if not abs(res["estimated_tracks"] - tracks_want) <= SFM_TRACK_TOL_REL * tracks_want:
         failures.append(f"{label}: {res['estimated_tracks']} tracks estimated, against "
                         f"{tracks_want}")
@@ -956,6 +1031,120 @@ def phase_images():
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def phase_scale_sfm():
+    """Phase 8: `synthetic_global.run(V=2152, T=100_000)` on the card, the
+    repository's largest scene, where the iterative Schur's two-level
+    preconditioner switches on; first and warm, each held to the JAX
+    package's CPU results and the warm run to the first; each BA round's
+    size gates printed and the coarse level required."""
+    sm.streaming_top2.launches = 0
+    k2.matmul_rowmin.launches = 0
+    log(f"[scale] JAX CPU: {JAX_CPU_SCALE_VIEWS} views, {JAX_CPU_SCALE_ESTIMATED_TRACKS} tracks "
+        f"estimated, median position error {JAX_CPU_SCALE_MEDIAN_POSITION_ERR!r}, mean "
+        f"{JAX_CPU_SCALE_MEAN_POSITION_ERR!r}; BA rounds {JAX_CPU_SCALE_BA_ROUNDS}; size gates "
+        f"{JAX_CPU_SCALE_SIZE_GATES}")
+    failures, runs = [], []
+    for label in ("first", "warm"):
+        counters.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = synthetic_global.run(**SCALE_SCENE)  # the user's default device: the card
+        wall = time.perf_counter() - t0
+        for line in global_sfm.describe(f"scale {label}", res):
+            log(line)
+        log(f"[scale {label}] run() {wall:.3f} s (scene built in {res['t_build_s']:.3f} s, "
+            f"{res['observations']} observations, {res['edges']} edges); launch counters "
+            f"{counters.snapshot()}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        failures += _sfm_failures(f"scale {label}", res, JAX_CPU_SCALE_ESTIMATED_TRACKS,
+                                  JAX_CPU_SCALE_MEDIAN_POSITION_ERR, JAX_CPU_SCALE_VIEWS)
+        iterations = tuple(r["iterations"] for r in res["ba_rounds"])
+        log(f"[scale {label}] LM iterations a BA round: card {iterations}, JAX CPU "
+            f"{JAX_CPU_SCALE_LM_ITERATIONS}")
+        gates = [r["size_gates"] for r in res["ba_rounds"]]
+        if not gates or not all(g and g["use_coarse"] for g in gates):
+            failures.append(f"scale {label}: a BA round ran without the coarse level: {gates}")
+        runs.append(res)
+    failures += _sfm_failures("scale warm against first", runs[1], runs[0]["estimated_tracks"],
+                              runs[0]["median_pos_err"], JAX_CPU_SCALE_VIEWS)
+    log(f"[scale] K1 launches on this path {sm.streaming_top2.launches}, K2 launches "
+        f"{k2.matmul_rowmin.launches} (no hand-written kernel runs here)")
+    if failures:
+        raise RuntimeError("2152-view global SfM checks failed: " + "; ".join(failures))
+    return sm.streaming_top2.launches, k2.matmul_rowmin.launches
+
+
+def phase_contaminated_sfm():
+    """Phase 9: `estimate` on the 553-view scene with 15% of its edges
+    corrupted, on the card, held to the JAX package's CPU results on the
+    same graph (each filter's removed edges equal)."""
+    sm.streaming_top2.launches = 0
+    k2.matmul_rowmin.launches = 0
+    log(f"[contaminated] JAX CPU: {JAX_CPU_SFM_VIEWS} views, {JAX_CPU_CONT_ESTIMATED_TRACKS} "
+        f"tracks estimated, median position error {JAX_CPU_CONT_MEDIAN_POSITION_ERR!r}, mean "
+        f"{JAX_CPU_CONT_MEAN_POSITION_ERR!r}; removed edges {JAX_CPU_CONT_REMOVED}; BA rounds "
+        f"{JAX_CPU_CONT_BA_ROUNDS}")
+    counters.reset()
+    torch.cuda.reset_peak_memory_stats()
+    res = global_sfm.run_contaminated()  # the user's default device: the card
+    for line in global_sfm.describe("contaminated", res):
+        log(line)
+    log(f"[contaminated] {len(res['corrupted'])} edges corrupted; removed edges "
+        f"{res['removed_edges']} (JAX CPU {JAX_CPU_CONT_REMOVED}); launch counters "
+        f"{counters.snapshot()}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    failures = _sfm_failures("contaminated", res, JAX_CPU_CONT_ESTIMATED_TRACKS,
+                             JAX_CPU_CONT_MEDIAN_POSITION_ERR)
+    for name, want in JAX_CPU_CONT_REMOVED.items():
+        if res["removed_edges"].get(name) != want:
+            failures.append(f"contaminated: {name} removed {res['removed_edges'].get(name)} "
+                            f"edges, against {want}")
+    log(f"[contaminated] K1 launches on this path {sm.streaming_top2.launches}, K2 launches "
+        f"{k2.matmul_rowmin.launches} (no hand-written kernel runs here)")
+    if failures:
+        raise RuntimeError("contaminated global SfM checks failed: " + "; ".join(failures))
+    return sm.streaming_top2.launches, k2.matmul_rowmin.launches
+
+
+def phase_camera_rig():
+    """Phase 10: one bundle adjustment of the camera-model rig
+    (`tools.camera_rig`: the eight models, one intrinsics group each, 64
+    views and 4,000 tracks a group) on the card in f64 with free focal
+    length and radial distortion, held to the JAX package's CPU results:
+    the final cost and each group's median position error against ground
+    truth."""
+    sm.streaming_top2.launches = 0
+    k2.matmul_rowmin.launches = 0
+    log(f"[rig] JAX CPU: {JAX_CPU_RIG_ITERATIONS} LM iterations, final cost "
+        f"{JAX_CPU_RIG_FINAL_COST!r}, median position errors {JAX_CPU_RIG_MEDIANS}")
+    failures = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = camera_rig.run_rig()  # the user's default device: the card
+    wall = time.perf_counter() - t0
+    s, rig = out["summary"], out["rig"]
+    log(f"[rig] {rig.recon.num_views()} views, {rig.recon.num_tracks()} tracks, "
+        f"{rig.recon.num_observations()} observations; {s.linear_solver} kernel, "
+        f"{s.num_iterations} LM iterations (JAX CPU {JAX_CPU_RIG_ITERATIONS}), "
+        f"{s.num_linear_solver_iterations} PCG steps, cost {s.initial_cost!r} -> "
+        f"{s.final_cost!r}; BA {out['seconds']:.3f} s ({wall:.3f} s with the build); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not s.success or s.linear_solver != "iterative":
+        failures.append("rig: no success, or not the iterative Schur")
+    if not abs(s.final_cost - JAX_CPU_RIG_FINAL_COST) <= RIG_COST_TOL_REL * JAX_CPU_RIG_FINAL_COST:
+        failures.append(f"rig: final cost {s.final_cost!r}, against {JAX_CPU_RIG_FINAL_COST!r}")
+    for m, got in zip(rig.models, out["median_position_errors"]):
+        want = JAX_CPU_RIG_MEDIANS[m.name]
+        log(f"[rig] {m.name}: median position error {got!r} (JAX CPU {want!r})")
+        if not abs(got - want) <= SFM_MEDIAN_TOL_REL * want + 1e-6:
+            failures.append(f"rig: {m.name} median position error {got!r}, against {want!r}")
+    log(f"[rig] K1 launches on this path {sm.streaming_top2.launches}, K2 launches "
+        f"{k2.matmul_rowmin.launches} (no hand-written kernel runs here)")
+    if failures:
+        raise RuntimeError("camera-model rig checks failed: " + "; ".join(failures))
+    return sm.streaming_top2.launches, k2.matmul_rowmin.launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke.py: no CUDA card; this script needs one")
@@ -1000,7 +1189,12 @@ def main() -> int:
     im = phase_images()
     k1_checks.append(im["check"])
 
-    # 8. Summary lines.
+    # 8. Global SfM at 2152 views, the coarse level on.
+    # 9. Global SfM on the contaminated graph.
+    # 10. The camera-model rig.
+    later = [phase_scale_sfm(), phase_contaminated_sfm(), phase_camera_rig()]
+
+    # 11. Summary lines.
     d128 = next(d for d in rowmin["depths"] if d["D"] == 128)
     kernels = [
         dict(
@@ -1023,6 +1217,7 @@ def main() -> int:
             images_plain_ms=im["plain_ms"],
             images_bound_ms=im["bound_ms"],
             images_bound_by=im["bound_by"],
+            phases_8_to_10_launches=[k1_launches for k1_launches, _ in later],
             **k1,
         ),
         dict(
@@ -1040,6 +1235,7 @@ def main() -> int:
             shape=[k2.P, k2.N, 128],
             by_depth=rowmin["depths"],
             images_launches=im["k2_launches"],
+            phases_8_to_10_launches=[k2_launches for _, k2_launches in later],
         ),
     ]
     log(json.dumps({"kernels": kernels}))

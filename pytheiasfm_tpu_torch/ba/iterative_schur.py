@@ -532,4 +532,6 @@ def bundle_adjust_iterative(
     )
     state, summary = run_lm(prob.cost_of, prob.lm_step, (extrinsics, intrinsics, points),
                             options, "iterative")
+    summary.size_gates = dict(V=prob.V, T=prob.T, L=prob.L, use_coarse=prob.use_coarse,
+                              group=prob.group, Vc=prob.Vc, coarse_stride=prob.coarse_stride)
     return (*state, summary)

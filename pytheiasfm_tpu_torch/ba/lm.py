@@ -127,7 +127,9 @@ class BundleAdjustmentSummary:
     `converged` says the function tolerance stopped the loop. The port's
     own: `num_linear_solver_iterations` counts the PCG steps of all LM
     iterations (0 for the direct solve), `linear_solver` names the kernel
-    that ran ("dense", "iterative" or "flat")."""
+    that ran ("dense", "iterative" or "flat"), `size_gates` holds the
+    iterative kernel's size gates as it took them (padded `V`, `T`, `L`,
+    `use_coarse`, `group`, `Vc`, `coarse_stride`; None for the others)."""
 
     success: bool
     initial_cost: float
@@ -137,6 +139,7 @@ class BundleAdjustmentSummary:
     converged: bool | None = None
     num_linear_solver_iterations: int | None = None
     linear_solver: str | None = None
+    size_gates: dict | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -145,13 +148,36 @@ class BundleAdjustmentSummary:
 
 
 def _pixel_of(params, p_cam, present_models, model_idx):
-    """Project camera-frame points through the observations' camera model.
-    Only PINHOLE is ported, so a problem holds one model; the JAX package
-    selects among several by `model_idx` (`lax.switch`)."""
-    if len(present_models) != 1:
-        raise NotImplementedError("a problem with several camera models is not ported yet "
-                                  "(ROADMAP item A1b)")
-    return intr.camera_to_pixel(params, p_cam, present_models[0])
+    """Project camera-frame points [.., 3] through each row's camera model:
+    intrinsics `params` [.., P] and `model_idx` (an index into
+    `present_models`, shaped like the rows: the trailing batch axes) broadcast
+    against the points.
+
+    With one model present the call is static. With several, the rows are
+    partitioned by model and each model sees only its own rows, so one
+    model's guards (FISHEYE's atan2, DOUBLE_SPHERE's square roots) never
+    meet another model's points or parameters (the JAX package's
+    `lax.switch` evaluates every branch on every row and selects). An index
+    out of range is clamped, as `lax.switch` clamps it. One host read a
+    call: the rows of each model."""
+    if len(present_models) == 1:
+        return intr.camera_to_pixel(params, p_cam, present_models[0])
+    batch = torch.broadcast_shapes(params.shape[:-1], p_cam.shape[:-1])
+    lead = batch[:len(batch) - model_idx.dim()]
+    n, P = model_idx.numel(), params.shape[-1]
+    q = params.expand(*batch, P).reshape(*lead, n, P)
+    x = p_cam.expand(*batch, 3).reshape(*lead, n, 3)
+    flat = model_idx.reshape(-1).long().clamp(0, len(present_models) - 1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=len(present_models)).tolist()
+    parts = []
+    for rows, m in zip(torch.split(order, counts), present_models):
+        if len(rows):
+            parts.append(intr.camera_to_pixel(q.index_select(-2, rows),
+                                              x.index_select(-2, rows), m))
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(n, device=order.device)
+    return torch.cat(parts, dim=-2).index_select(-2, inverse).reshape(*batch, 2)
 
 
 def _residual_at_point(e6, params, p_world, uv, sqrt_info, present_models, model_idx):

@@ -1,2 +1,2 @@
-"""Camera models: PINHOLE intrinsics (`intrinsics.py`) and extrinsics and
-projection (`camera.py`); the other seven intrinsics models wait (A1b)."""
+"""Camera models: the eight intrinsics models (`intrinsics.py`) and
+extrinsics and projection (`camera.py`)."""

@@ -25,8 +25,9 @@ from ..models.intrinsics import CameraIntrinsicsModelType as M
 from ..ops import rotation as rotops
 from ..sfm.reconstruction import CameraIntrinsicsPrior, Reconstruction
 from ..sfm.view_graph import TwoViewInfo, ViewGraph
+from ..transforms.alignment import align_point_clouds_umeyama
 
-__all__ = ["build_scene", "run"]
+__all__ = ["build_scene", "position_errors", "run"]
 
 
 def _t(a):
@@ -154,6 +155,17 @@ def build_scene(
     return recon, graph, positions
 
 
+def position_errors(recon, gt_positions):
+    """(estimated view ids, their position errors after the Umeyama Sim(3)
+    alignment of the estimated positions onto `gt_positions` [V, 3])."""
+    est_ids = [v for v in range(recon.num_views()) if recon.view_estimated[v]]
+    est = recon.view_extrinsics[est_ids, :3]
+    gt = gt_positions[est_ids]
+    Ra, ta, s = align_point_clouds_umeyama(_t(est), _t(gt))
+    aligned = float(s) * est @ Ra.numpy().T + ta.numpy()
+    return est_ids, np.linalg.norm(aligned - gt, axis=-1)
+
+
 def run(V=553, T=50_000, seed=0, estimator_type="global", calibrated=False, device=None,
         profile=False):
     """Build the scene and run the global estimator on `device` (None: the
@@ -181,7 +193,6 @@ def run(V=553, T=50_000, seed=0, estimator_type="global", calibrated=False, devi
         ReconstructionEstimatorType,
     )
     from ..sfm.reconstruction_estimator import create_reconstruction_estimator
-    from ..transforms.alignment import align_point_clouds_umeyama
     from ..utils.timing import StageTimer
 
     t0 = time.perf_counter()
@@ -201,12 +212,7 @@ def run(V=553, T=50_000, seed=0, estimator_type="global", calibrated=False, devi
     summary = estimator.estimate(graph, recon, timer)
     t_total = time.perf_counter() - t0
 
-    est_ids = [v for v in range(recon.num_views()) if recon.view_estimated[v]]
-    est = recon.view_extrinsics[est_ids, :3]
-    gt = gt_positions[est_ids]
-    Ra, ta, s = align_point_clouds_umeyama(_t(est), _t(gt))
-    aligned = float(s) * est @ Ra.numpy().T + ta.numpy()
-    err = np.linalg.norm(aligned - gt, axis=-1)
+    est_ids, err = position_errors(recon, gt_positions)
     return dict(
         success=bool(summary.success),
         views=len(est_ids),

@@ -69,13 +69,17 @@ class GlobalReconstructionEstimator:
     (`global_reconstruction_estimator.h:71-90`). `device`: where the
     numeric stages run (None: the CUDA card). After `estimate`,
     `bundle_adjustment_rounds` holds one dict a BA round: the kernel that
-    ran (`solver`: "dense", "iterative" or "flat"), LM and PCG iterations, initial and final cost, outliers removed, tracks retriangulated, and
-    the seconds of the solve and of the outlier filter."""
+    ran (`solver`: "dense", "iterative" or "flat"), LM and PCG iterations,
+    initial and final cost, outliers removed, tracks retriangulated, the
+    seconds of the solve and of the outlier filter, and the iterative
+    kernel's size gates (`size_gates`, None for the other kernels);
+    `removed_edges` the count of view-graph edges each filter removed."""
 
     def __init__(self, options: ReconstructionEstimatorOptions | None = None, device=None):
         self.options = options or ReconstructionEstimatorOptions()
         self.device = default_device(device)
         self.bundle_adjustment_rounds: list[dict] = []
+        self.removed_edges: dict[str, int] = {}
         self.calibration_time = 0.0
 
     # ------------------------------------------------------------- pipeline
@@ -99,7 +103,8 @@ class GlobalReconstructionEstimator:
             raise NotImplementedError("a device mesh is not ported yet (ROADMAP item G1)")
         summary = ReconstructionEstimatorSummary()
         t_start = time.perf_counter()
-        poses = self._estimate_poses(view_graph, recon, timer)
+        self.removed_edges = {}
+        poses = self._estimate_poses(view_graph, recon, timer, removed=self.removed_edges)
         if poses is None:
             summary.message = "insufficient view pairs"
             logger.warning("global SfM aborted: insufficient view pairs")
@@ -355,7 +360,7 @@ class GlobalReconstructionEstimator:
                        pcg_iterations=ba_summary.num_linear_solver_iterations,
                        initial_cost=ba_summary.initial_cost, final_cost=ba_summary.final_cost,
                        outliers=num_outliers, retriangulated=0, solve_s=t1 - t0,
-                       filter_s=t2 - t1)
+                       filter_s=t2 - t1, size_gates=ba_summary.size_gates)
             self.bundle_adjustment_rounds.append(rnd)
             logger.info("BA round %d (%s): %d LM iterations, cost %.4g -> %.4g, %d outliers "
                         "(solve %.2fs, filter %.2fs)", it, rnd["solver"], rnd["iterations"],

@@ -99,12 +99,14 @@ def generate_scene(options: SyntheticSceneOptions | None = None):
         )
         recon.view_extrinsics[v] = ext[v]
     recon.set_camera_intrinsics_from_priors()
-    for _ in range(T):
-        recon.add_track()
+    recon.add_tracks_bulk(T)
 
-    # Project all points into all views (pinhole fast path in numpy).
+    # Project all points into all views (pinhole fast path in numpy); the
+    # rows view by view, as the JAX package adds them one at a time, added
+    # in one bulk call.
     fx = opt.focal_length
     cx, cy = opt.image_width / 2.0, opt.image_height / 2.0
+    rows = []
     for v in range(V):
         R = rotops.angle_axis_to_rotation_matrix(_t(ext[v, 3:])).numpy()
         p_cam = (points - ext[v, :3]) @ R.T
@@ -118,8 +120,9 @@ def generate_scene(options: SyntheticSceneOptions | None = None):
             & (uv[:, 1] < opt.image_height)
         )
         noise = rng.normal(size=uv.shape) * opt.pixel_noise
-        for t in np.flatnonzero(visible):
-            recon.add_observation(v, int(t), uv[t] + noise[t])
+        t = np.flatnonzero(visible)
+        rows.append((np.full(len(t), v), t, uv[t] + noise[t]))
+    recon.add_observations_bulk(*(np.concatenate(c) for c in zip(*rows)))
 
     return recon, ext, points
 
@@ -149,9 +152,7 @@ def random_reconstruction(
     recon.points[:, :3] = points
     recon.points[:, 3] = 1.0
     # Only tracks with >= 2 observations participate in BA.
-    recon.track_estimated[:] = [
-        len(recon.track_observations(t)) >= 2 for t in range(recon.num_tracks())
-    ]
+    recon.track_estimated[:] = np.bincount(recon.obs_track, minlength=recon.num_tracks()) >= 2
     return recon
 
 

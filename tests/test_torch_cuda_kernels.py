@@ -23,7 +23,8 @@ on the 8-view scene of `tests/test_global_estimator.py`, the same estimated
 views on the card as on the CPU. The dense-Schur and flat kernels (with and
 without view priors) and the covariance entries, card against CPU: f64 the
 same LM iterations, the final cost and the covariance blocks to 1e-8
-relative; f32 the final cost to 1e-4 relative.
+relative; f32 the final cost to 1e-4 relative. The f64 bars for BA over a
+rig of all eight camera models in one problem (`tools.camera_rig`).
 """
 
 import copy
@@ -522,3 +523,35 @@ def test_covariance_on_the_card_matches_the_cpu(cuda, selected):
         scale = max(np.abs(w).max() for w in want.values())
         for k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-8 * scale)
+
+
+def test_mixed_rig_bundle_adjustment_on_the_card_matches_the_cpu(cuda):
+    """The eight-model rig of `tools.camera_rig` at 6 views and 40 tracks a
+    model (each observation projected through its own model,
+    `ba/lm._pixel_of`), free focal length and radial distortion (the
+    iterative Schur), in the rig's f64, card against CPU: the same LM
+    iterations and the final cost to 1e-8 relative; then the outlier
+    filter's reprojection pass over the rig to 1e-6 px^2. Not in f32: there
+    the rig's final cost moves by 1e-3 relative under a 1e-7 change of the
+    points on the CPU alone (the f32 LM stop falls on rounding noise; the
+    ORTHOGRAPHIC group's pixels reach 1e5)."""
+    from pytheiasfm_tpu_torch.sfm import reconstruction_estimator_utils as reu
+    from pytheiasfm_tpu_torch.tools import camera_rig
+
+    rig = camera_rig.build_rig(views_per_group=6, tracks_per_group=40)
+    free = camera_rig.perturb(rig)
+    tracks = [int(t) for t in np.nonzero(rig.recon.track_estimated)[0]]
+    summaries, states = [], []
+    for device in (cuda, "cpu"):
+        r = copy.deepcopy(rig.recon)
+        summaries.append(ba_entry.bundle_adjust_partial_reconstruction(
+            camera_rig.RIG_OPTIONS, free, tracks, r, camera_rig.RIG_DTYPE, device=device))
+        states.append(r)
+    card, cpu = summaries
+    assert card.linear_solver == cpu.linear_solver == "iterative"
+    assert card.success and cpu.success and card.final_cost < 0.01 * card.initial_cost
+    assert card.num_iterations == cpu.num_iterations
+    assert abs(card.final_cost - cpu.final_cost) <= 1e-8 * cpu.final_cost
+    errs = [reu.compute_reprojection_errors(states[1], device=device)[0]
+            for device in (cuda, "cpu")]
+    np.testing.assert_allclose(errs[0], errs[1], rtol=0, atol=1e-6)

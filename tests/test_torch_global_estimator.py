@@ -14,14 +14,22 @@ trajectories differ in rounding, so converged states are compared. The
 same scenes calibrated (constant intrinsics, XYZW tracks: BA by the dense
 Schur) are held to the same bars.
 
+`estimate` on the 48-view scene with 15% of its edges corrupted
+(`tools.global_pose.contaminate`): the same edges removed by each filter,
+the same views, tracks within 1% and the median position error within 5%
+of the JAX package's.
+
 The `slow` tests run `synthetic_global.run()` and `run(calibrated=True)` at
 full size (553 views, 50,000 tracks) in both packages and print the JAX
 package's CPU results that `chip_smoke.py` holds the card to (phases 5 and
-6):
+6); `-k "scale_run or contaminated_full_size or eight_model_rig"` prints
+those of phases 8-10 (the JAX package alone: 2152 views, the contaminated
+553-view graph, the camera-model rig):
 
     python -m pytest tests/test_torch_global_estimator.py -m slow -s
 """
 
+import contextlib
 import copy
 import time
 
@@ -30,6 +38,8 @@ import numpy as np
 import pytest
 import torch
 
+from pytheiasfm_tpu.ba import entry as jentry
+from pytheiasfm_tpu.ba import iterative_schur as jis
 from pytheiasfm_tpu.ba.lm import TrackParametrizationType as JTP
 from pytheiasfm_tpu.models.intrinsics import OptimizeIntrinsicsType as JOI
 from pytheiasfm_tpu.pipelines import synthetic_global as jsg
@@ -44,6 +54,7 @@ from pytheiasfm_tpu_torch.pipelines import synthetic_global as tsg
 from pytheiasfm_tpu_torch.sfm import estimator_options as topts
 from pytheiasfm_tpu_torch.sfm.global_estimator import GlobalReconstructionEstimator
 from pytheiasfm_tpu_torch.sfm.reconstruction_estimator import create_reconstruction_estimator
+from pytheiasfm_tpu_torch.tools import global_sfm
 from pytheiasfm_tpu_torch.transforms import alignment as talign
 from pytheiasfm_tpu_torch.utils import counters
 from pytheiasfm_tpu_torch.utils import synthetic as tsyn
@@ -237,19 +248,14 @@ def test_estimate_stops_without_edges():
 SMALL_RUN = dict(V=48, T=4000, seed=0)
 
 
-def jax_run(**kw):
-    """The JAX package's `synthetic_global.run`, with the count of tracks
-    its estimator estimated and its BA-round log lines kept."""
+@contextlib.contextmanager
+def jax_ba_log():
+    """The JAX estimator's "BA round" log lines while the block runs."""
     import logging
 
     from pytheiasfm_tpu.utils.log import logger as jlogger
 
-    kept, lines = {}, []
-    estimate = JEstimator.estimate
-
-    def keep_summary(self, view_graph, recon):
-        kept["summary"] = estimate(self, view_graph, recon)
-        return kept["summary"]
+    lines = []
 
     class Keep(logging.Handler):
         def emit(self, record):
@@ -257,18 +263,99 @@ def jax_run(**kw):
                 lines.append(record.getMessage())
 
     handler, level = Keep(), jlogger.level
-    JEstimator.estimate = keep_summary
     jlogger.addHandler(handler)
     jlogger.setLevel(logging.INFO)
     try:
-        out = jsg.run(**kw)
+        yield lines
     finally:
-        JEstimator.estimate = estimate
         jlogger.removeHandler(handler)
         jlogger.setLevel(level)
+
+
+def jax_run(**kw):
+    """The JAX package's `synthetic_global.run`, with the count of tracks
+    its estimator estimated, its BA-round log lines and the iterative
+    kernel's size gates of each BA round kept."""
+    kept, gates = {}, []
+    estimate = JEstimator.estimate
+    iterative = jentry.bundle_adjust_iterative
+
+    def keep_summary(self, view_graph, recon):
+        kept["summary"] = estimate(self, view_graph, recon)
+        return kept["summary"]
+
+    def keep_gates(*args, **kwargs):
+        V, T, L = kwargs["num_views"], kwargs["num_tracks"], kwargs["max_track_len"]
+        # The JAX kernel's gates (`ba/iterative_schur.py:222-226`; its
+        # coarse target of 160 aggregates is a local there).
+        group = 16 * max(1, -(-V // (16 * 160)))
+        gates.append(dict(V=V, T=T, L=L, use_coarse=V >= 1024, group=group, Vc=-(-V // group),
+                          coarse_stride=4 if T * L > jis._SCAN_SLOT_THRESHOLD else 1))
+        return iterative(*args, **kwargs)
+
+    JEstimator.estimate = keep_summary
+    jentry.bundle_adjust_iterative = keep_gates
+    try:
+        with jax_ba_log() as lines:
+            out = jsg.run(**kw)
+    finally:
+        JEstimator.estimate = estimate
+        jentry.bundle_adjust_iterative = iterative
     out["estimated_tracks"] = len(kept["summary"].estimated_tracks)
     out["ba_log"] = lines
+    out["size_gates"] = gates
     return out
+
+
+def jax_contaminated(monkeypatch, seed=0, **size):
+    """The JAX estimator at the reference-default options on the port's
+    `build_scene(**size)` carried into the JAX containers and contaminated
+    by `tools.global_pose.contaminate`: (views, estimated views, estimated
+    tracks, median and mean position error after Umeyama, each filter's
+    removed edges, BA log lines)."""
+    import test_torch_global_pose as S
+
+    from pytheiasfm_tpu.global_pose import filters as jfilters
+
+    recon, graph, gt_positions, _, _ = S.scene("contaminated", seed=seed, **size)
+    removed = {}
+    for name, key in (("filter_view_pairs_from_orientation", "orientation filter"),
+                      ("filter_view_pairs_from_relative_translation", "1DSfM")):
+        def keep(*a, _fn=getattr(jfilters, name), _key=key, **k):
+            removed[_key] = _fn(*a, **k)
+            return removed[_key]
+
+        monkeypatch.setattr(jfilters, name, keep)
+    with jax_ba_log() as lines:
+        summary = JEstimator(JOptions(rng_seed=seed)).estimate(graph, recon)
+    ids, err = tsg.position_errors(recon, gt_positions)
+    return dict(views=len(ids), estimated_views=summary.estimated_views,
+                estimated_tracks=len(summary.estimated_tracks),
+                median_pos_err=float(np.median(err)), mean_pos_err=float(np.mean(err)),
+                removed_edges=removed, ba_log=lines)
+
+
+CONTAMINATED_SMALL = dict(V=48, T=4000, neighborhood=6)
+
+
+def test_contaminated_estimate_matches_jax(monkeypatch):
+    """`estimate` end to end on the 48-view scene with 15% of its edges
+    corrupted (the size the filters are held at in
+    `test_torch_global_pose.py`): the same edges removed by each filter,
+    the same estimated views, estimated tracks within 1% and the median
+    position error within 5% of the JAX package's. No RANSAC draws on this
+    path."""
+    want = jax_contaminated(monkeypatch, **CONTAMINATED_SMALL)
+    got = global_sfm.run_contaminated(device="cpu", **CONTAMINATED_SMALL)
+    assert got["success"]
+    assert got["removed_edges"]["orientation filter"] == want["removed_edges"][
+        "orientation filter"] > 0
+    assert got["removed_edges"]["1DSfM"] == want["removed_edges"]["1DSfM"]
+    assert got["estimated_views"] == want["estimated_views"]
+    assert got["views"] >= 46
+    assert abs(got["estimated_tracks"] - want["estimated_tracks"]) <= 0.01 * want[
+        "estimated_tracks"]
+    assert got["median_pos_err"] == pytest.approx(want["median_pos_err"], rel=0.05)
 
 
 def test_synthetic_global_run_small():
@@ -329,3 +416,69 @@ def test_full_size_calibrated_run_matches_jax():
     assert abs(got["estimated_tracks"] - want["estimated_tracks"]) <= 0.005 * want[
         "estimated_tracks"]
     assert got["median_pos_err"] == pytest.approx(want["median_pos_err"], rel=0.02, abs=1e-6)
+
+
+@pytest.mark.slow
+def test_scale_run_constants():
+    """`synthetic_global.run(V=2152, T=100_000)`, the repository's largest
+    scene, in the JAX package on the CPU; prints its numbers that
+    `chip_smoke.py` phase 8 holds the card to, with each BA round's size
+    gates (the two-level preconditioner switches on at this size). Run it
+    with JAX_PLATFORMS=cpu on a host with tens of GiB and several cores
+    (about two minutes on the 8 cores of an H100 machine's host)."""
+    t0 = time.perf_counter()
+    want = jax_run(V=2152, T=100_000, seed=0)
+    print(f"\n[2152 views] JAX CPU ({time.perf_counter() - t0:.1f} s): views {want['views']}, "
+          f"tracks {want['tracks']}, estimated tracks {want['estimated_tracks']}, median "
+          f"position error {want['median_pos_err']!r}, mean {want['mean_pos_err']!r}; BA: "
+          f"{want['ba_log']}; size gates {want['size_gates']}")
+    assert want["success"] and want["views"] >= 2150
+    assert all(g["use_coarse"] for g in want["size_gates"])
+
+
+@pytest.mark.slow
+def test_contaminated_full_size_constants(monkeypatch):
+    """`estimate` on the 553-view scene with 15% of its edges corrupted, in
+    the JAX package on the CPU; prints its numbers that `chip_smoke.py`
+    phase 9 holds the card to."""
+    t0 = time.perf_counter()
+    want = jax_contaminated(monkeypatch, V=553, T=50_000)
+    print(f"\n[553 views, contaminated] JAX CPU ({time.perf_counter() - t0:.1f} s): views "
+          f"{want['views']}, estimated tracks {want['estimated_tracks']}, median position "
+          f"error {want['median_pos_err']!r}, mean {want['mean_pos_err']!r}; removed edges "
+          f"{want['removed_edges']}; BA: {want['ba_log']}")
+    assert want["views"] >= 550
+
+
+@pytest.mark.slow
+def test_eight_model_rig_constants():
+    """The camera-model rig of `tools.camera_rig` (the eight models, 64
+    views and 4,000 tracks a model, 0.5 px noise), perturbed,
+    bundle-adjusted by the JAX package on the CPU in `camera_rig.RIG_DTYPE`
+    (f64) with free focal length and radial distortion; prints its numbers
+    that `chip_smoke.py` phase 10 holds the card to (cost, LM iterations,
+    each group's median position error)."""
+    import test_torch_global_pose as S
+
+    from pytheiasfm_tpu.ba.lm import BundleAdjustmentOptions as JBAOptions
+    from pytheiasfm_tpu_torch.sfm.view_graph import ViewGraph
+    from pytheiasfm_tpu_torch.tools import camera_rig
+
+    rig = camera_rig.build_rig()
+    free = camera_rig.perturb(rig)
+    before = camera_rig.group_position_errors(rig, rig.recon.view_extrinsics)
+    jrecon, _ = S.to_jax(rig.recon, ViewGraph())
+    tracks = [int(t) for t in np.nonzero(jrecon.track_estimated)[0]]
+    t0 = time.perf_counter()
+    js = jentry.bundle_adjust_partial_reconstruction(
+        JBAOptions(intrinsics_to_optimize=JOI.FOCAL_LENGTH | JOI.RADIAL_DISTORTION), free,
+        tracks, jrecon, dtype=camera_rig.RIG_DTYPE)
+    seconds = time.perf_counter() - t0
+    after = camera_rig.group_position_errors(rig, jrecon.view_extrinsics)
+    print(f"\n[rig] {jrecon.num_views()} views, {jrecon.num_tracks()} tracks, "
+          f"{jrecon.num_observations()} observations; JAX CPU ({seconds:.1f} s): success "
+          f"{bool(js.success)}, {int(js.num_iterations)} LM iterations, cost "
+          f"{float(js.initial_cost)!r} -> {float(js.final_cost)!r}")
+    for m, b, a in zip(rig.models, before, after):
+        print(f"  {m.name}: median position error {b!r} -> {a!r}")
+    assert bool(js.success)
