@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one CUDA card: matching, global SfM, images, camera models.
+"""Drive the PyTorch/CUDA port on one CUDA card: matching, global SfM, images, camera models,
+uncalibrated verification, absolute pose.
 
     python3 chip_smoke.py
 
@@ -90,7 +91,26 @@ Phases, each printed (flushed) as it ends:
      cost, each group's median position error against ground truth);
      phases 8-10 each print K1's and K2's launch counts on their path (no
      hand-written kernel runs there);
- 11. print a {"kernels": [...]} line, the card's name and power limit, and
+ 11. the uncalibrated path: the ring scene of phase 3 with each camera's
+     look-at point jittered off the centre (`ring_scene.UNCALIBRATED_LOOK_JITTER`;
+     where all principal axes meet, focal lengths from F are undefined),
+     priors with the image size and principal point but no focal length:
+     first the stage-1 estimator on the ground-truth correspondences of
+     every co-visible pair (256) against the JAX package's CPU run on the
+     same inputs (median focal and rotation errors), then
+     `match_images` at the default options and with the guided rematch,
+     each with K1's launch count set to 0 just before and read just after,
+     held to ground truth (verified pairs, false pairs, correspondences on
+     a track) and to the JAX estimator's medians; K1 on that run's inputs
+     against its plain version; then the calibrated scene with
+     `use_lo=True`, held to run b's bars of phase 3;
+ 12. absolute pose at localization scale: `tools.localization`'s 553 P3P
+     problems (the synthetic scene's views, about 540 rows each, 30%
+     outliers) in one batched `estimate_calibrated_absolute_pose` call for
+     each RANSAC variant (LO, LO + SPRT, PROSAC, LMed), each held to the
+     JAX package's CPU run on the same problems (median rotation and
+     position errors, the share of views with 30 inliers or more);
+ 13. print a {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 It imports nothing of JAX. Without a CUDA card, or outside the repository,
@@ -100,6 +120,7 @@ it exits non-zero before printing any result.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import re
 import subprocess
@@ -126,12 +147,17 @@ from pytheiasfm_tpu_torch.matching.guided_epipolar import guided_epipolar_match
 from pytheiasfm_tpu_torch.ops import rotation as rotops
 from pytheiasfm_tpu_torch.pipelines import synthetic_global
 from pytheiasfm_tpu_torch.sfm.reconstruction import CameraIntrinsicsPrior
+from pytheiasfm_tpu_torch.sfm.two_view import (
+    EstimateTwoViewInfoOptions,
+    estimate_uncalibrated_two_view_info_batch,
+)
 from pytheiasfm_tpu_torch.tools import camera_rig
 from pytheiasfm_tpu_torch.tools import exp_matcher_roofline as k2
 from pytheiasfm_tpu_torch.tools import global_pose as gp
 from pytheiasfm_tpu_torch.tools import global_sfm
 from pytheiasfm_tpu_torch.tools import image_scene
 from pytheiasfm_tpu_torch.tools import images_sfm
+from pytheiasfm_tpu_torch.tools import localization
 from pytheiasfm_tpu_torch.tools import ring_scene as rs
 from pytheiasfm_tpu_torch.utils import counters, cuda_build
 from pytheiasfm_tpu_torch.utils.timing import cuda_time_ms
@@ -322,6 +348,43 @@ SIFT_DESC_TOL = 1e-4
 SIFT_RESP_TOL_REL = 1e-5
 GRAPH_MATCH_NEIGHBORS = 8
 
+# The uncalibrated path (phase 11). Its focal lengths are those of the best
+# minimal 8-point sample, unrefined, in the JAX package as here: on the
+# jittered ring scene at 0.5 px noise they are off by a median of about 11%
+# and the rotations by about 4.3 deg (PERF.md, section 6, PR 12; the 5% and
+# 1 deg bars first meant for this phase are below what the reference
+# reaches). So each median is held to 1.25x the JAX package's on the same
+# scene plus a slack. The JAX package's own results on the CPU: its
+# `estimate_uncalibrated_relative_pose` on the ground-truth correspondences
+# of the 256 co-visible pairs (f32, the two-view options' parameters),
+# recorded by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_uncalibrated_verification.py -m slow -s -k phase_11
+# (JAX 0.9 on the host CPU of an H100 machine; no TPU number).
+JAX_CPU_UNCAL_PAIRS = 256
+JAX_CPU_UNCAL_MEDIAN_FOCAL_ERR = 0.10890404383341479
+JAX_CPU_UNCAL_MEDIAN_ROTATION_DEG = 4.315073658368249
+UNCAL_RATIO = 1.25
+UNCAL_FOCAL_SLACK = 0.01
+UNCAL_ROTATION_SLACK_DEG = 0.1
+
+# Absolute pose at localization scale (phase 12): the JAX package's
+# `estimate_calibrated_absolute_pose` on the same 553 problems, each variant
+# vmapped over chunks of views, f32: (median rotation error in degrees,
+# median position error, share of views with >= 30 inliers), recorded by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_uncalibrated_verification.py -m slow -s -k phase_12
+# (JAX 0.9 on the host CPU of an H100 machine). Each card variant: both
+# medians within 1.25x of JAX's plus 1e-3 deg / 1e-4, the share within 0.01.
+JAX_CPU_LOCALIZATION = {
+    "default (LO)": (0.012954811627327216, 0.0022937340296333352, 1.0),
+    "LO + SPRT": (0.012954811627327216, 0.0022937340296333352, 1.0),
+    "PROSAC": (0.013130076745644186, 0.0023056920818714834, 1.0),
+    "LMed": (0.012160755587425572, 0.002122464007407634, 1.0),
+}
+LOC_RATIO = 1.25
+LOC_ROTATION_SLACK_DEG = 1e-3
+LOC_POSITION_SLACK = 1e-4
+LOC_SHARE_TOL = 0.01
+
 
 def log(*args):
     print(*args, flush=True)
@@ -451,12 +514,17 @@ def phase_kernels(dev):
     return k1, k1_checks, dict(launches=k2_launches, max_abs_err=max(errs), depths=depths)
 
 
-def run_slice(views, prior, label, **gv):
+def run_slice(views, prior, label, twoview=None, **gv):
     """One `match_images` run on the ring scene with the given verification
-    options; returns (matches, matcher, K1 launches, wall seconds)."""
+    options (`twoview`: changes to its `EstimateTwoViewInfoOptions`);
+    returns (matches, matcher, K1 launches, wall seconds)."""
     options = FeatureMatcherOptions()
     for key, value in gv.items():
         setattr(options.geometric_verification_options, key, value)
+    if twoview:
+        gvo = options.geometric_verification_options
+        gvo.estimate_twoview_info_options = dataclasses.replace(
+            gvo.estimate_twoview_info_options, **twoview)
     matcher = FeatureMatcher(options)  # the user's default device: the card
     for v, (kps, desc) in enumerate(views):
         matcher.add_image(rs.view_name(v), kps, desc, prior)
@@ -490,7 +558,7 @@ class RematchRecorder:
         return idx
 
 
-def check_rematch(recorder):
+def check_rematch(recorder, label="slice c: guided"):
     """Run c's guided rematch: its first chunks on the card against the same
     inputs on the CPU, index for index; the correspondences it added; and
     the added ones whose epipolar band held one candidate. Returns (those
@@ -511,15 +579,15 @@ def check_rematch(recorder):
         p, i = torch.nonzero((idx >= 0) & single, as_tuple=True)
         pairs = torch.cat([points1[p, i], points2[p, idx[p, i].long()]], dim=-1)
         lone.update(row.tobytes() for row in pairs.cpu().numpy())
-    log(f"[slice c: guided] rematch: {len(recorder.calls)} chunks, {added} correspondences "
+    log(f"[{label}] rematch: {len(recorder.calls)} chunks, {added} correspondences "
         f"added, {len(lone)} of them the only candidate in their epipolar band; "
         f"card against CPU on the first {GUIDED_CHUNKS_CHECKED} chunks: {differ}/{rows} "
         f"rows differ")
     failures = []
     if added < 1:
-        failures.append("guided run: the rematch added no correspondence")
+        failures.append(f"{label}: the rematch added no correspondence")
     if differ > (1 - MIN_AGREEMENT) * rows:
-        failures.append(f"guided run: the rematch on the card differs from the CPU in "
+        failures.append(f"{label}: the rematch on the card differs from the CPU in "
                         f"{differ}/{rows} rows")
     return lone, failures
 
@@ -655,6 +723,158 @@ def phase_slice(dev):
         f"counter)")
     return dict(launches=runs["b"][2], check=check, shape=[P, N, D], ms=slice_ms,
                 plain_ms=slice_plain_ms, bound_ms=slice_bound_ms, bound_by=bound_by)
+
+
+def _uncal_bars(label, focal, rot):
+    """Phase 11's bars on median focal and rotation errors, against the JAX
+    package's stage-1 medians on the same scene."""
+    focal_bar = UNCAL_RATIO * JAX_CPU_UNCAL_MEDIAN_FOCAL_ERR + UNCAL_FOCAL_SLACK
+    rot_bar = UNCAL_RATIO * JAX_CPU_UNCAL_MEDIAN_ROTATION_DEG + UNCAL_ROTATION_SLACK_DEG
+    log(f"[uncalibrated {label}] median |f / f_true - 1| {focal!r} (bar {focal_bar:.4f}), median "
+        f"rotation error {rot!r} deg (bar {rot_bar:.4f}); JAX CPU stage 1 on the ground-truth "
+        f"correspondences: {JAX_CPU_UNCAL_MEDIAN_FOCAL_ERR!r}, "
+        f"{JAX_CPU_UNCAL_MEDIAN_ROTATION_DEG!r} deg")
+    failures = []
+    if not focal <= focal_bar:
+        failures.append(f"{label}: median focal error {focal:.4f} > {focal_bar:.4f}")
+    if not rot <= rot_bar:
+        failures.append(f"{label}: median rotation error {rot:.4f} deg > {rot_bar:.4f}")
+    return failures
+
+
+def _verified_focal_and_rotation(matches, rots):
+    """Median focal and rotation errors over the verified co-visible pairs."""
+    index = {rs.view_name(v): v for v in range(rs.NUM_VIEWS)}
+    pairs, f1, f2, R = [], [], [], []
+    for m in matches:
+        a, b = index[m.image1], index[m.image2]
+        if rs.shares_tracks(a, b):
+            pairs.append((a, b))
+            f1.append(m.twoview_info.focal_length_1)
+            f2.append(m.twoview_info.focal_length_2)
+            R.append(rotops.angle_axis_to_rotation_matrix(
+                torch.as_tensor(m.twoview_info.rotation_2, dtype=torch.float64)).numpy())
+    return rs.focal_and_rotation_errors(pairs, f1, f2, R, rots)
+
+
+def phase_uncalibrated(dev):
+    """Phase 11: the uncalibrated path on the jittered ring scene (see the
+    module's docstring). Returns (K1's launches on runs a / b / c, K2's,
+    K1's check on run a's inputs)."""
+    views, rots, track_ids = rs.ring_scene(look_jitter=rs.UNCALIBRATED_LOOK_JITTER)
+    prior = CameraIntrinsicsPrior(image_width=rs.WIDTH, image_height=rs.HEIGHT,
+                                  principal_point=(rs.WIDTH / 2, rs.HEIGHT / 2))
+    failures = []
+
+    # Stage 1 alone on the ground-truth correspondences, as the JAX run.
+    pairs, p1, p2, mask = rs.covisible_correspondences(views, track_ids)
+    if len(pairs) != JAX_CPU_UNCAL_PAIRS:
+        failures.append(f"uncalibrated stage 1: {len(pairs)} co-visible pairs, the JAX run "
+                        f"had {JAX_CPU_UNCAL_PAIRS}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = estimate_uncalibrated_two_view_info_batch(
+        torch.Generator(device=dev).manual_seed(0), EstimateTwoViewInfoOptions(),
+        [prior] * len(pairs), [prior] * len(pairs), p1, p2, mask, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(info is None for info, _ in results):
+        failures.append("uncalibrated stage 1: a co-visible pair failed on its own "
+                        "ground-truth correspondences")
+    infos = [info for info, _ in results if info is not None]
+    R = [rotops.angle_axis_to_rotation_matrix(torch.as_tensor(i.rotation_2)).numpy()
+         for i in infos]
+    focal, rot = rs.focal_and_rotation_errors(
+        [p for p, (i, _) in zip(pairs, results) if i is not None],
+        [i.focal_length_1 for i in infos], [i.focal_length_2 for i in infos], R, rots)
+    log(f"[uncalibrated stage 1] {len(pairs)} co-visible pairs' ground-truth "
+        f"correspondences ({int(mask.sum(1).min())}-{int(mask.sum(1).max())} rows): "
+        f"{wall:.3f} s, {len(infos)} verified")
+    failures += _uncal_bars("stage 1 on ground truth", focal, rot)
+
+    launches = []
+    k2.matmul_rowmin.launches = 0
+    for label, gv in (("a: uncalibrated", dict()),
+                      ("b: uncalibrated, guided", dict(guided_matching=True))):
+        recorder = RematchRecorder()
+        matcher_module.guided_epipolar_match = recorder
+        try:
+            matches, matcher, k1_launches, _ = run_slice(views, prior, label, **gv)
+        finally:
+            matcher_module.guided_epipolar_match = guided_epipolar_match
+        lone = frozenset()
+        if recorder.calls:
+            lone, f = check_rematch(recorder, label)
+            failures += f
+        _, _, _, f = check_slice(label, matches, matcher, k1_launches, rots, views, track_ids,
+                                 lone)
+        failures += f
+        failures += _uncal_bars(label, *_verified_focal_and_rotation(matches, rots))
+        launches.append(k1_launches)
+        if not gv:
+            d1, d2, m1, m2, _, _ = matcher.descriptor_batch(matcher.pairs()[:8])
+            check = check_top2(sm.streaming_inputs(d1, d2, m1, m2), "run a's first 8 pairs")
+        del matches
+
+    # The calibrated scene with LO-RANSAC, at run b's bars of phase 3.
+    cal_views, cal_rots, cal_track_ids = rs.ring_scene()
+    cal_prior = CameraIntrinsicsPrior(image_width=rs.WIDTH, image_height=rs.HEIGHT,
+                                      focal_length=rs.FOCAL)
+    label = "c: calibrated, use_lo"
+    matches, matcher, k1_launches, _ = run_slice(cal_views, cal_prior, label,
+                                                 twoview=dict(use_lo=True))
+    median_err, _, _, f = check_slice(label, matches, matcher, k1_launches, cal_rots,
+                                      cal_views, cal_track_ids)
+    failures += f
+    if not median_err <= MAX_MEDIAN_ROTATION_DEG:
+        failures.append(f"{label}: median rotation error {median_err:.4f} deg")
+    launches.append(k1_launches)
+    log(f"[uncalibrated] K2 launches on this path {k2.matmul_rowmin.launches}")
+    if failures:
+        raise RuntimeError("uncalibrated path checks failed: " + "; ".join(failures))
+    return launches, k2.matmul_rowmin.launches, check
+
+
+def phase_localization(dev):
+    """Phase 12: the 553 localization problems, one batched call for each
+    RANSAC variant, held to the JAX package's CPU results. Returns K1's and
+    K2's launches on the path."""
+    t0 = time.perf_counter()
+    problems = localization.build_problems()
+    rows = problems["mask"].sum(1)
+    log(f"[localization] {len(rows)} problems of {rows.min()}-{rows.max()} rows "
+        f"({localization.OUTLIER_SHARE:.0%} outliers), built in {time.perf_counter() - t0:.2f} s")
+    sm.streaming_top2.launches = 0
+    k2.matmul_rowmin.launches = 0
+    failures = []
+    for name in localization.VARIANTS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, summary = localization.run_variant(
+            problems, name, torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rot, pos, share = localization.errors(
+            model.rotation.cpu().numpy(), model.position.cpu().numpy(),
+            summary.num_inliers.cpu().numpy(), problems)
+        j_rot, j_pos, j_share = JAX_CPU_LOCALIZATION[name]
+        log(f"[localization {name}] {wall:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {summary.num_lo_iterations} "
+            f"LO rounds; median rotation error {rot!r} deg (JAX CPU {j_rot!r}), median "
+            f"position error {pos!r} (JAX CPU {j_pos!r}), views with >= "
+            f"{localization.MIN_INLIERS} inliers {share!r} (JAX CPU {j_share!r})")
+        if not rot <= LOC_RATIO * j_rot + LOC_ROTATION_SLACK_DEG:
+            failures.append(f"{name}: median rotation error {rot:.5f} deg")
+        if not pos <= LOC_RATIO * j_pos + LOC_POSITION_SLACK:
+            failures.append(f"{name}: median position error {pos:.6f}")
+        if not abs(share - j_share) <= LOC_SHARE_TOL:
+            failures.append(f"{name}: share of views with enough inliers {share:.4f}")
+    log(f"[localization] K1 launches on this path {sm.streaming_top2.launches}, K2 launches "
+        f"{k2.matmul_rowmin.launches} (no hand-written kernel runs here)")
+    if failures:
+        raise RuntimeError("localization checks failed: " + "; ".join(failures))
+    return sm.streaming_top2.launches, k2.matmul_rowmin.launches
 
 
 def _pose_arrays(res, ids):
@@ -1194,7 +1414,14 @@ def main() -> int:
     # 10. The camera-model rig.
     later = [phase_scale_sfm(), phase_contaminated_sfm(), phase_camera_rig()]
 
-    # 11. Summary lines.
+    # 11. The uncalibrated path; the calibrated scene with LO-RANSAC.
+    uncal_k1, uncal_k2, uncal_check = phase_uncalibrated(dev)
+    k1_checks.append(uncal_check)
+
+    # 12. Absolute pose at localization scale, every RANSAC variant.
+    loc_k1, loc_k2 = phase_localization(dev)
+
+    # 13. Summary lines.
     d128 = next(d for d in rowmin["depths"] if d["D"] == 128)
     kernels = [
         dict(
@@ -1218,6 +1445,8 @@ def main() -> int:
             images_bound_ms=im["bound_ms"],
             images_bound_by=im["bound_by"],
             phases_8_to_10_launches=[k1_launches for k1_launches, _ in later],
+            phase_11_launches=uncal_k1,
+            phase_12_launches=loc_k1,
             **k1,
         ),
         dict(
@@ -1236,6 +1465,8 @@ def main() -> int:
             by_depth=rowmin["depths"],
             images_launches=im["k2_launches"],
             phases_8_to_10_launches=[k2_launches for _, k2_launches in later],
+            phase_11_launches=uncal_k2,
+            phase_12_launches=loc_k2,
         ),
     ]
     log(json.dumps({"kernels": kernels}))

@@ -6,14 +6,12 @@ Counterpart of the JAX package's `matching/matcher.py`
 `feature_matcher.cc:104-133`, per-pair match -> GeometricVerification ->
 database store at `:198-217`). Pairs are padded into [P, N, ...] blocks;
 descriptor matching runs as one K1 kernel launch over all pairs, and
-calibrated verification as batched programs: stage 1, five-point RANSAC;
-stage 2, the guided epipolar rematch (`guided_matching`) and the
-triangulation gate + two-view bundle adjustment (`bundle_adjustment`, on by
-default).
-
-Pairs without a focal-length prior on both sides (the uncalibrated
-fundamental-matrix path) raise `NotImplementedError`: the JAX reference of
-that path fails (ROADMAP.md, "Faults found").
+verification as batched programs: stage 1, RANSAC (five-point essential
+matrix for pairs with a focal prior on both sides, the 8-point fundamental
+matrix with focal recovery for the others, each pair the single-pair
+function of its rows); stage 2, the guided epipolar rematch
+(`guided_matching`) and the triangulation gate + two-view bundle adjustment
+(`bundle_adjustment`, on by default).
 """
 
 from __future__ import annotations
@@ -26,7 +24,10 @@ import torch
 from .. import default_device
 from ..sfm.reconstruction import CameraIntrinsicsPrior
 from ..sfm.reconstruction_builder import ImagePairMatch
-from ..sfm.two_view import estimate_two_view_info_batch
+from ..sfm.two_view import (
+    estimate_two_view_info_batch,
+    estimate_uncalibrated_two_view_info_batch,
+)
 from ..sfm.two_view_match_geometric_verification import (
     _prior_K,
     fundamental_from_two_view_info,
@@ -41,13 +42,6 @@ from .types import KeypointsAndDescriptors
 
 __all__ = ["FeatureMatcher", "BruteForceFeatureMatcher"]
 
-_UNCALIBRATED = (
-    "the uncalibrated (fundamental matrix) verification is not ported yet: its "
-    "JAX reference, sfm/two_view.estimate_two_view_info, fails on such pairs "
-    "(ROADMAP.md, 'Faults found')"
-)
-
-
 def _pad_pow2(n: int, floor: int = 64) -> int:
     p = floor
     while p < n:
@@ -59,7 +53,9 @@ class FeatureMatcher:
     """Parity: `theia::FeatureMatcher` (`feature_matcher.h:77`).
 
     `device` is where matching and verification run: None means the CUDA
-    card (which must be present); pass "cpu" to run on the CPU.
+    card (which must be present); pass "cpu" to run on the CPU. `seed`
+    seeds the generator that draws the RANSAC samples of each
+    `match_images` (the JAX package's matcher uses `PRNGKey(0)`).
     """
 
     def __init__(
@@ -67,8 +63,10 @@ class FeatureMatcher:
         options: FeatureMatcherOptions | None = None,
         database: InMemoryFeaturesAndMatchesDatabase | None = None,
         device=None,
+        seed: int = 0,
     ):
         self.device = default_device(device)
+        self.seed = seed
         self.options = options or FeatureMatcherOptions()
         self.database = database or InMemoryFeaturesAndMatchesDatabase()
         self._image_names: list[str] = []
@@ -218,11 +216,13 @@ class FeatureMatcher:
         Parity: `FeatureMatcher::GeometricVerification`
         (feature_matcher.cc:198-217) -> `VerifyMatches`
         (two_view_match_geometric_verification.cc:114-183). Stage 1 (RANSAC
-        geometry of calibrated pairs) runs as batched programs, with samples
-        from a generator seeded with 0 on the matcher's device; stage 2
-        (guided rematch, triangulation gate, two-view BA) as batched programs
-        over the survivors. `padded` holds the matcher inputs of all pairs:
-        d1, d2, m1, m2 on the device and kp1, kp2 on the host.
+        geometry) runs as batched programs, the calibrated pairs first, then
+        those without a focal prior on both sides, with samples from one
+        generator seeded with `self.seed` on the matcher's device; stage 2
+        (guided rematch, triangulation gate, two-view BA) as batched
+        programs over the survivors, in that order. `padded` holds the
+        matcher inputs of all pairs: d1, d2, m1, m2 on the device and kp1,
+        kp2 on the host.
         """
         opt = self.options
         gv = opt.geometric_verification_options
@@ -235,39 +235,41 @@ class FeatureMatcher:
 
         priors1 = [prior_of(c["a"]) for c in candidates]
         priors2 = [prior_of(c["b"]) for c in candidates]
-        for c, p1, p2 in zip(candidates, priors1, priors2):
-            if p1.focal_length is None or p2.focal_length is None:
-                raise NotImplementedError(
-                    f"pair ({c['a']}, {c['b']}) lacks a focal-length prior: " + _UNCALIBRATED
-                )
-
-        K = _pad_pow2(max(len(c["c1"]) for c in candidates))
-        P = len(candidates)
-        pts1 = np.zeros((P, K, 2))
-        pts2 = np.zeros((P, K, 2))
-        masks = np.zeros((P, K), bool)
-        for row, cand in enumerate(candidates):
-            k = len(cand["c1"])
-            pts1[row, :k] = cand["c1"]
-            pts2[row, :k] = cand["c2"]
-            masks[row, :k] = True
-        generator = torch.Generator(device=self.device).manual_seed(0)
-        results = estimate_two_view_info_batch(
-            generator, etvi, priors1, priors2, pts1, pts2, masks,
-            min_num_inlier_matches=opt.min_num_feature_matches,
-            device=self.device,
-        )
+        calibrated = [
+            p1.focal_length is not None and p2.focal_length is not None
+            for p1, p2 in zip(priors1, priors2)
+        ]
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
 
         # survivors: (cand, prior1, prior2, info, idx1, idx2) with idx1/idx2
         # the per-image feature indices of the inlier matches.
         survivors = []
-        for cand, p1, p2, (info, inlier_idx) in zip(candidates, priors1, priors2, results):
-            if info is None:
+        for kind, verify in ((True, estimate_two_view_info_batch),
+                             (False, estimate_uncalibrated_two_view_info_batch)):
+            rows = [i for i, c in enumerate(calibrated) if c == kind]
+            if not rows:
                 continue
-            inlier_idx = inlier_idx[inlier_idx < len(cand["c1"])]
-            survivors.append(
-                (cand, p1, p2, info, cand["idx1"][inlier_idx], cand["idx2"][inlier_idx])
+            K = _pad_pow2(max(len(candidates[i]["c1"]) for i in rows))
+            pts1 = np.zeros((len(rows), K, 2))
+            pts2 = np.zeros((len(rows), K, 2))
+            masks = np.zeros((len(rows), K), bool)
+            for row, i in enumerate(rows):
+                k = len(candidates[i]["c1"])
+                pts1[row, :k] = candidates[i]["c1"]
+                pts2[row, :k] = candidates[i]["c2"]
+                masks[row, :k] = True
+            results = verify(
+                generator, etvi, [priors1[i] for i in rows], [priors2[i] for i in rows],
+                pts1, pts2, masks, min_num_inlier_matches=opt.min_num_feature_matches,
+                device=self.device,
             )
+            for i, (info, inlier_idx) in zip(rows, results):
+                if info is None:
+                    continue
+                cand = candidates[i]
+                inlier_idx = inlier_idx[inlier_idx < len(cand["c1"])]
+                survivors.append((cand, priors1[i], priors2[i], info,
+                                  cand["idx1"][inlier_idx], cand["idx2"][inlier_idx]))
 
         if survivors and (gv.guided_matching or gv.bundle_adjustment):
             t0 = time.perf_counter()
@@ -296,17 +298,21 @@ class FeatureMatcher:
         triangulation gate + two-view BA + final reprojection gate
         (`:170-180` and `BundleAdjustRelativePose`). Updates each survivor's
         `TwoViewInfo` in place (rotation, unit position, verified count), as
-        the JAX package does."""
+        the JAX package does. A pair without focal priors on both sides has
+        its epipolar bands drawn with its recovered focal lengths
+        (`_prior_K`), the lengths its pose and its BA are in."""
         gv = self.options.geometric_verification_options
         dev = self.device
         f32 = torch.float32
         P = len(survivors)
         N = padded["kp1"].shape[1]
-        Ks1 = np.stack([_prior_K(s[1]) for s in survivors])
-        Ks2 = np.stack([_prior_K(s[2]) for s in survivors])
         # Focal lengths actually used for normalization (priors or recovered).
         f1s = np.array([s[3].focal_length_1 or 1.0 for s in survivors])
         f2s = np.array([s[3].focal_length_2 or 1.0 for s in survivors])
+        calibrated = [p1.focal_length is not None and p2.focal_length is not None
+                      for _, p1, p2, _, _, _ in survivors]
+        Ks1 = np.stack([_prior_K(s[1], None if c else f) for s, c, f in zip(survivors, calibrated, f1s)])
+        Ks2 = np.stack([_prior_K(s[2], None if c else f) for s, c, f in zip(survivors, calibrated, f2s)])
 
         if gv.guided_matching:
             rows = np.array([s[0]["row"] for s in survivors])

@@ -32,15 +32,30 @@ __all__ = [
 _EIGH_BATCH = 16384
 
 
+def _chunked(solver, a):
+    """`solver` over any batch of matrices a [.., m, n], in chunks that
+    cuSOLVER takes. Returns the solver's outputs with a's batch axes."""
+    batch = a.shape[:-2]
+    flat = a.reshape(-1, *a.shape[-2:])
+    parts = [solver(c) for c in torch.split(flat, _EIGH_BATCH)]
+    return tuple(torch.cat(outs).reshape(*batch, *outs[0].shape[1:]) for outs in zip(*parts))
+
+
 def _eigh(a):
     """`torch.linalg.eigh` over any batch, in chunks that cuSOLVER takes.
     Returns (eigenvalues, eigenvectors)."""
-    batch = a.shape[:-2]
-    flat = a.reshape(-1, *a.shape[-2:])
-    parts = [torch.linalg.eigh(c) for c in torch.split(flat, _EIGH_BATCH)]
-    vals = torch.cat([v for v, _ in parts]).reshape(*batch, -1)
-    vecs = torch.cat([v for _, v in parts]).reshape(*batch, *a.shape[-2:])
-    return vals, vecs
+    return _chunked(torch.linalg.eigh, a)
+
+
+def _svd(a):
+    """`torch.linalg.svd` (reduced) over any batch, chunked as `_eigh`.
+    Returns (U, S, Vh)."""
+    return _chunked(lambda c: torch.linalg.svd(c, full_matrices=False), a)
+
+
+def _det3(M):
+    """Determinants of [.., 3, 3] matrices by the cofactor expansion."""
+    return torch.sum(M[..., 0, :] * torch.linalg.cross(M[..., 1, :], M[..., 2, :], dim=-1), -1)
 
 
 def _homogeneous(p):

@@ -57,6 +57,7 @@ def run_images_pipeline(
     use_exif: bool = True,
     seed: int = 0,
     pair_preselection_neighbors: int | None = None,
+    matcher_seed: int = 0,
     device=None,
     profile: bool = False,
 ):
@@ -69,6 +70,10 @@ def run_images_pipeline(
     each phase also runs under `torch.profiler`, and `stats["launches"]` /
     `stats["device_seconds"]` give its kernel launches and their device
     time by phase ("extract", "match_verify", "reconstruct").
+
+    `matcher_seed` seeds the generator of the matcher's RANSAC draws (the
+    JAX package's matcher uses `PRNGKey(0)`; `seed` is the estimator's, as
+    there).
 
     `pair_preselection_neighbors`: when set, candidate pairs are chosen by
     a k-NN graph over global image descriptors (L2-normalized mean-pooled
@@ -113,7 +118,7 @@ def run_images_pipeline(
     # too conservative for: the composed stage 2 of the reference's
     # verification (two_view_match_geometric_verification.cc:157-168).
     mopt.geometric_verification_options.guided_matching = True
-    matcher = FeatureMatcher(mopt, device=device)
+    matcher = FeatureMatcher(mopt, device=device, seed=matcher_seed)
     bopt = ReconstructionBuilderOptions(
         min_num_inlier_matches=min_num_inlier_matches,
         reconstruction_estimator_options=ReconstructionEstimatorOptions(

@@ -1,11 +1,13 @@
-"""Two-view geometric verification: the calibrated batch.
+"""Two-view geometric verification.
 
 Counterpart of the JAX package's `sfm/two_view.py`
 (`theia/sfm/estimate_twoview_info.{h,cc}`, `estimate_twoview_info.cc:259`).
-Calibrated pairs verify as one batched five-point RANSAC program over a
-block of view pairs; `estimate_two_view_info` is the single-pair API over
-the same batch. The uncalibrated path (fundamental matrix + focal recovery)
-raises: its JAX reference fails (ROADMAP.md, "Faults found").
+Paths (estimate_twoview_info.h:84-96): pairs with a focal prior on both
+sides verify by five-point RANSAC on the essential matrix, batched over a
+block of pairs (`estimate_two_view_info_batch`); the others by the 8-point
+fundamental matrix with focal recovery (`estimate_uncalibrated_two_view_info_batch`,
+each pair the single-pair function of its rows). `estimate_two_view_info`
+is the single-pair API over both.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ __all__ = [
     "EstimateTwoViewInfoOptions",
     "estimate_two_view_info",
     "estimate_two_view_info_batch",
+    "estimate_uncalibrated_two_view_info_batch",
     "normalize_features_by_priors",
     "compute_resolution_scaled_threshold",
 ]
@@ -84,18 +87,127 @@ def normalize_features_by_priors(
     return n1, n2, both_calibrated
 
 
-def _ransac_parameters(options: EstimateTwoViewInfoOptions):
-    if options.ransac_type != engine.RansacType.RANSAC or options.use_lo:
-        raise NotImplementedError(
-            "estimate_two_view_info_batch has plain RANSAC only; PROSAC, "
-            "LMed and LO-RANSAC are not yet ported (ROADMAP.md queue 1)"
-        )
+def _ransac_parameters(options: EstimateTwoViewInfoOptions, sampler: str = "random"):
     return engine.RansacParameters(
         failure_probability=1.0 - options.expected_ransac_confidence,
         min_iterations=options.min_ransac_iterations,
         max_iterations=options.max_ransac_iterations,
         use_lo=options.use_lo,
+        sampler=sampler,
     )
+
+
+def _single_pair_parameters(options: EstimateTwoViewInfoOptions):
+    """The single-pair API's parameters: PROSAC when asked for
+    (`estimate_twoview_info.cc`); the batch draws at random whatever
+    `ransac_type` says, as the JAX package's batch does."""
+    prosac = options.ransac_type == engine.RansacType.PROSAC
+    return _ransac_parameters(options, "prosac" if prosac else "random")
+
+
+def _thresholds(options, priors1, priors2, calibrated: bool):
+    """Per-pair squared Sampson thresholds: the resolution-scaled pixel
+    bounds of both images, divided by both focal lengths when calibrated."""
+    out = np.zeros((len(priors1),), np.float64)
+    for i, (p1, p2) in enumerate(zip(priors1, priors2)):
+        e1 = compute_resolution_scaled_threshold(
+            options.max_sampson_error_pixels, p1.image_width, p1.image_height
+        )
+        e2 = compute_resolution_scaled_threshold(
+            options.max_sampson_error_pixels, p2.image_width, p2.image_height
+        )
+        out[i] = e1 * e2 / (p1.focal_length * p2.focal_length) if calibrated else e1 * e2
+    return out
+
+
+def _normalized(priors1, priors2, points1, points2, calibrated: bool):
+    """`normalize_features_by_priors` over a batch of pairs, each required
+    to be calibrated (or, with calibrated=False, not)."""
+    n1 = np.zeros_like(np.asarray(points1, np.float64))
+    n2 = np.zeros_like(np.asarray(points2, np.float64))
+    for i in range(len(priors1)):
+        a, b, both = normalize_features_by_priors(priors1[i], priors2[i], points1[i], points2[i])
+        if both != calibrated:
+            raise ValueError(
+                "estimate_two_view_info_batch handles calibrated pairs only"
+                if calibrated else "a pair with focal priors on both sides is calibrated"
+            )
+        n1[i], n2[i] = a, b
+    return n1, n2
+
+
+def _visibility(info, idx, points1, points2, prior1, prior2):
+    """Visibility score over the inlier pixels (estimate_twoview_info.cc
+    ComputeVisibilityScoreOfInliers, 12 levels over both images)."""
+    info.visibility_score = visibility_score(
+        np.asarray(points1)[idx], prior1.image_width or 1024, prior1.image_height or 1024
+    ) + visibility_score(
+        np.asarray(points2)[idx], prior2.image_width or 1024, prior2.image_height or 1024
+    )
+    return info
+
+
+def _verify(calibrated: bool, params, generator, options, priors1, priors2, points1, points2,
+            masks, min_num_inlier_matches, device):
+    """Stage 1 over a block of pairs of one kind, in f32 and chunks of pairs
+    (`_PAIRS_PER_CHUNK`): the five-point relative pose for calibrated pairs,
+    the uncalibrated relative pose (each pair over its true count) for the
+    others. Returns a list of (TwoViewInfo | None, inlier_indices)."""
+    n1, n2 = _normalized(priors1, priors2, points1, points2, calibrated)
+    thresh = _thresholds(options, priors1, priors2, calibrated)
+    masks = np.asarray(masks)
+    if calibrated:
+        estimate, num_data = estimators.estimate_relative_pose, None
+    else:
+        estimate, num_data = estimators.estimate_uncalibrated_relative_pose, masks.sum(-1)
+    f32 = torch.float32
+    parts = {"aa": [], "position": [], "inliers": [], "num": [], "f1": [], "f2": []}
+    for s0 in range(0, len(n1), _PAIRS_PER_CHUNK):
+        sl = slice(s0, min(s0 + _PAIRS_PER_CHUNK, len(n1)))
+        model, summary = estimate(
+            generator,
+            torch.as_tensor(n1[sl], dtype=f32, device=device),
+            torch.as_tensor(n2[sl], dtype=f32, device=device),
+            params,
+            mask=torch.as_tensor(masks[sl], device=device),
+            quality="mle" if options.use_mle else "inlier",
+            error_thresh=torch.as_tensor(thresh[sl], dtype=f32, device=device),
+            num_data=None if num_data is None else torch.as_tensor(num_data[sl], device=device),
+        )
+        parts["aa"].append(rotops.rotation_matrix_to_angle_axis(model.rotation))
+        parts["position"].append(model.position)
+        parts["inliers"].append(summary.inliers)
+        parts["num"].append(summary.num_inliers)
+        if not calibrated:
+            parts["f1"].append(model.focal_length1)
+            parts["f2"].append(model.focal_length2)
+    # One host copy per result set.
+    host = {k: torch.cat(v).cpu().numpy() for k, v in parts.items() if v}
+
+    results = []
+    for i, (p1, p2) in enumerate(zip(priors1, priors2)):
+        if host["num"][i] < min_num_inlier_matches:
+            results.append((None, np.zeros((0,), np.int64)))
+            continue
+        if calibrated:
+            f1, f2 = float(p1.focal_length), float(p2.focal_length)
+        else:
+            # The JAX function's wrapper indexes these scalars with a leading
+            # axis they do not have and fails (ROADMAP.md, section 3); this is
+            # what it plainly means.
+            lo, hi = options.min_focal_length, options.max_focal_length
+            f1 = float(np.clip(host["f1"][i], lo, hi))
+            f2 = float(np.clip(host["f2"][i], lo, hi))
+        idx = np.flatnonzero(host["inliers"][i])
+        info = TwoViewInfo(
+            focal_length_1=f1,
+            focal_length_2=f2,
+            rotation_2=host["aa"][i].astype(np.float64),
+            position_2=host["position"][i].astype(np.float64),
+            num_verified_matches=int(host["num"][i]),
+        )
+        results.append((_visibility(info, idx, points1[i], points2[i], p1, p2), idx))
+    return results
 
 
 def estimate_two_view_info_batch(
@@ -115,85 +227,41 @@ def estimate_two_view_info_batch(
     points1/points2 [P, N, 2] PIXEL coordinates (padded), masks [P, N].
     `generator` draws the RANSAC samples and lives on `device` (default:
     the generator's device). Verification runs in f32, as in the JAX
-    package, in chunks of pairs.
+    package, in chunks of pairs. As the JAX package's batch, it draws at
+    random whatever `options.ransac_type` says and honours `use_lo`; a
+    pair without a focal prior on both sides raises `ValueError`.
     Returns a list of (TwoViewInfo | None, inlier_indices) per pair.
     """
     device = torch.device(device) if device is not None else generator.device
-    P = len(priors1)
-    n1 = np.zeros_like(np.asarray(points1, np.float64))
-    n2 = np.zeros_like(np.asarray(points2, np.float64))
-    thresh = np.zeros((P,), np.float64)
-    for i in range(P):
-        a, b, calibrated = normalize_features_by_priors(
-            priors1[i], priors2[i], points1[i], points2[i]
-        )
-        if not calibrated:
-            raise ValueError(
-                "estimate_two_view_info_batch handles calibrated pairs only"
-            )
-        n1[i], n2[i] = a, b
-        e1 = compute_resolution_scaled_threshold(
-            options.max_sampson_error_pixels,
-            priors1[i].image_width,
-            priors1[i].image_height,
-        )
-        e2 = compute_resolution_scaled_threshold(
-            options.max_sampson_error_pixels,
-            priors2[i].image_width,
-            priors2[i].image_height,
-        )
-        thresh[i] = e1 * e2 / (priors1[i].focal_length * priors2[i].focal_length)
+    return _verify(True, _ransac_parameters(options), generator, options, priors1, priors2,
+                   points1, points2, masks, min_num_inlier_matches, device)
 
-    params = _ransac_parameters(options)
-    quality = "mle" if options.use_mle else "inlier"
-    f32 = torch.float32
-    aa_all, pos_all, inl_all, num_all = [], [], [], []
-    for s0 in range(0, P, _PAIRS_PER_CHUNK):
-        sl = slice(s0, min(s0 + _PAIRS_PER_CHUNK, P))
-        model, summary = estimators.estimate_relative_pose(
-            generator,
-            torch.as_tensor(n1[sl], dtype=f32, device=device),
-            torch.as_tensor(n2[sl], dtype=f32, device=device),
-            params,
-            mask=torch.as_tensor(np.asarray(masks[sl]), device=device),
-            quality=quality,
-            error_thresh=torch.as_tensor(thresh[sl], dtype=f32, device=device),
-        )
-        aa_all.append(rotops.rotation_matrix_to_angle_axis(model.rotation))
-        pos_all.append(model.position)
-        inl_all.append(summary.inliers)
-        num_all.append(summary.num_inliers)
-    # One host copy per result set.
-    aa = torch.cat(aa_all).cpu().numpy().astype(np.float64)
-    position = torch.cat(pos_all).cpu().numpy().astype(np.float64)
-    inliers = torch.cat(inl_all).cpu().numpy()
-    num_inliers = torch.cat(num_all).cpu().numpy()
 
-    results = []
-    for i in range(P):
-        if num_inliers[i] < min_num_inlier_matches:
-            results.append((None, np.zeros((0,), np.int64)))
-            continue
-        idx = np.flatnonzero(inliers[i])
-        info = TwoViewInfo(
-            focal_length_1=float(priors1[i].focal_length),
-            focal_length_2=float(priors2[i].focal_length),
-            rotation_2=aa[i],
-            position_2=position[i],
-            num_verified_matches=int(num_inliers[i]),
-            visibility_score=visibility_score(
-                np.asarray(points1[i])[idx],
-                priors1[i].image_width or 1024,
-                priors1[i].image_height or 1024,
-            )
-            + visibility_score(
-                np.asarray(points2[i])[idx],
-                priors2[i].image_width or 1024,
-                priors2[i].image_height or 1024,
-            ),
-        )
-        results.append((info, idx))
-    return results
+def estimate_uncalibrated_two_view_info_batch(
+    generator: torch.Generator,
+    options: EstimateTwoViewInfoOptions,
+    priors1,
+    priors2,
+    points1,
+    points2,
+    masks,
+    min_num_inlier_matches: int = 5,
+    device=None,
+):
+    """The uncalibrated path of `estimate_two_view_info`
+    (`estimate_twoview_info.cc:259`, fundamental matrix + focal recovery)
+    over a block of pairs that lack a focal prior on one side or both:
+    each pair gets the single-pair function of its own rows (the sampler
+    from `options.ransac_type`, PROSAC's prefix and the inlier ratio over
+    its true count), in f32 and chunks of pairs, with samples from
+    `generator`. points1/points2 [P, N, 2] PIXEL coordinates (padded),
+    masks [P, N] (each pair's rows first). The focal lengths are clipped
+    to [min_focal_length, max_focal_length]. Returns a list of
+    (TwoViewInfo | None, inlier_indices) per pair.
+    """
+    device = torch.device(device) if device is not None else generator.device
+    return _verify(False, _single_pair_parameters(options), generator, options, priors1,
+                   priors2, points1, points2, masks, min_num_inlier_matches, device)
 
 
 def estimate_two_view_info(
@@ -208,18 +276,15 @@ def estimate_two_view_info(
 ):
     """Single-pair API. Parity: `theia::EstimateTwoViewInfo`
     (`estimate_twoview_info.cc:259`): pixel correspondences [N, 2] ->
-    (TwoViewInfo | None, inlier_indices). Runs `estimate_two_view_info_batch`
-    on a batch of one pair (f32, as the batch does); pairs without a focal
-    prior on both sides raise `NotImplementedError`."""
-    if prior1.focal_length is None or prior2.focal_length is None:
-        raise NotImplementedError(
-            "estimate_two_view_info: the uncalibrated (fundamental matrix) path "
-            "is not ported yet; its JAX reference fails (ROADMAP.md, 'Faults found')"
-        )
+    (TwoViewInfo | None, inlier_indices), in f32 as the JAX function runs
+    without x64. Pairs with a focal prior on both sides take the calibrated
+    path (five-point essential matrix), the others the uncalibrated one
+    (`estimate_uncalibrated_two_view_info_batch`). PROSAC is used when
+    `options.ransac_type` asks for it, LO-RANSAC when `options.use_lo`."""
+    device = torch.device(device) if device is not None else generator.device
     points1 = np.asarray(points1, np.float64)[None]
     points2 = np.asarray(points2, np.float64)[None]
-    return estimate_two_view_info_batch(
-        generator, options, [prior1], [prior2], points1, points2,
-        np.ones(points1.shape[:2], bool),
-        min_num_inlier_matches=min_num_inlier_matches, device=device,
-    )[0]
+    masks = np.ones(points1.shape[:2], bool)
+    calibrated = prior1.focal_length is not None and prior2.focal_length is not None
+    return _verify(calibrated, _single_pair_parameters(options), generator, options, [prior1],
+                   [prior2], points1, points2, masks, min_num_inlier_matches, device)[0]

@@ -6,7 +6,8 @@ Counterpart of the JAX package's `sfm/two_view_match_geometric_verification.py`
 `.h:55-93`, flow `VerifyMatches` at `.cc:114-183`):
 
   1. homography inlier count (plane-fit diagnostic, `.cc:330`),
-  2. RANSAC essential-matrix estimation (`estimate_two_view_info`),
+  2. RANSAC essential- or fundamental-matrix estimation
+     (`estimate_two_view_info`),
   3. optional guided matching along epipolar lines (`.cc:157-168`),
   4. triangulate matches, gate on reprojection error and triangulation angle,
   5. two-view bundle adjustment and a final reprojection gate (`.cc:173-180`),
@@ -14,7 +15,9 @@ Counterpart of the JAX package's `sfm/two_view_match_geometric_verification.py`
 
 Stages 4-5 run batched over a leading pair axis (`refine_relative_pose_batch`,
 which `FeatureMatcher` drives); `TwoViewMatchGeometricVerification` is the
-single-pair API. Uncalibrated pairs raise, as in `FeatureMatcher`.
+single-pair API. A pair without a focal prior on both sides takes the
+fundamental-matrix path with focal recovery; its guided rematch draws the
+epipolar bands with the recovered focal lengths (`_prior_K`).
 """
 
 from __future__ import annotations
@@ -62,8 +65,18 @@ class TwoViewMatchGeometricVerificationOptions:
     final_max_reprojection_error: float = 5.0
 
 
-def _prior_K(prior: CameraIntrinsicsPrior) -> np.ndarray:
-    f = prior.focal_length or 1.0
+def _prior_K(prior: CameraIntrinsicsPrior, focal_length: float | None = None) -> np.ndarray:
+    """The intrinsics matrix of a view: `focal_length` if given, else the
+    prior's (1.0 without one), and the prior's principal point (the image
+    centre without one).
+
+    The JAX package always takes the prior's focal length, so for a pair
+    without focal priors it builds the guided rematch's F with f = 1 while
+    the pose it draws the bands with is in units of the recovered focal
+    lengths (ROADMAP.md, section 3). The port passes the recovered focal
+    lengths (`TwoViewInfo.focal_length_1/2`) for such pairs; calibrated
+    pairs keep the prior's."""
+    f = focal_length or prior.focal_length or 1.0
     pp = prior.principal_point or (
         prior.image_width / 2.0,
         prior.image_height / 2.0,
@@ -177,8 +190,7 @@ class TwoViewMatchGeometricVerification:
     (`two_view_match_geometric_verification.h:105-122`).
 
     `device` is where the pair verifies: None means the CUDA card; pass
-    "cpu" to run on the CPU. Calibrated pairs only (both priors with a
-    focal length); other pairs raise `NotImplementedError`.
+    "cpu" to run on the CPU.
     """
 
     def __init__(
@@ -239,15 +251,10 @@ class TwoViewMatchGeometricVerification:
         Flow parity: `VerifyMatches`
         (`two_view_match_geometric_verification.cc:114-183`). `generator`
         (default: seeded with 0 on the device) draws the homography's RANSAC
-        samples, then the essential matrix's."""
+        samples, then the essential (or fundamental) matrix's."""
         opt = self.options
         if len(self.matches) < opt.min_num_inlier_matches:
             return None
-        if self.prior1.focal_length is None or self.prior2.focal_length is None:
-            raise NotImplementedError(
-                "the uncalibrated (fundamental matrix) verification is not ported "
-                "yet; its JAX reference fails (ROADMAP.md, 'Faults found')"
-            )
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
 
@@ -269,10 +276,11 @@ class TwoViewMatchGeometricVerification:
         info.num_homography_inliers = num_h_inliers
         matches = [self.matches[i] for i in inlier_idx]
 
-        K1 = _prior_K(self.prior1)
-        K2 = _prior_K(self.prior2)
         f1 = info.focal_length_1 or 1.0
         f2 = info.focal_length_2 or 1.0
+        calibrated = self.prior1.focal_length is not None and self.prior2.focal_length is not None
+        K1 = _prior_K(self.prior1, None if calibrated else f1)
+        K2 = _prior_K(self.prior2, None if calibrated else f2)
 
         if opt.guided_matching:
             from ..matching.guided_epipolar import GuidedEpipolarMatcher

@@ -1,6 +1,6 @@
 """Images to reconstruction on the CUDA card: the rendered 32-view scene.
 
-    python -m pytheiasfm_tpu_torch.tools.images_sfm [--profile]
+    python -m pytheiasfm_tpu_torch.tools.images_sfm [--profile | --matcher-seeds 0 1 2 3 4]
 
 Renders `tools.image_scene` (32 views, 1024x768, seed 0) into 8-bit PGM
 files in a temporary directory and runs `pipelines.images.run_images_pipeline`
@@ -12,7 +12,9 @@ K1's launches, the peak device memory and the accuracy against ground
 truth: the median rotation error after the best global rotation and the
 median position error after a Umeyama Sim(3) alignment, as a share of the
 ring radius. With `--profile` a third run goes under `torch.profiler`:
-each phase's kernel launches and their device time.
+each phase's kernel launches and their device time. With `--matcher-seeds`
+the runs after the first take the given seeds of the matcher's RANSAC
+generator instead, to show how far the draws move the result.
 """
 
 from __future__ import annotations
@@ -99,6 +101,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="a third run under torch.profiler: launches and device time a phase")
+    parser.add_argument("--matcher-seeds", type=int, nargs="+", metavar="SEED",
+                        help="instead: one run for each seed of the matcher's RANSAC "
+                             "generator, after a first run with seed 0")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("images_sfm: needs a CUDA card")
@@ -114,10 +119,14 @@ def main(argv=None) -> int:
           flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         paths = image_scene.write_views(tmp, images)
-        runs = [("first", False), ("warm", False)] + ([("profiled", True)] if args.profile
-                                                      else [])
-        for label, profile in runs:
-            res = run(paths, extrinsics, profile=profile)
+        if args.matcher_seeds:
+            runs = [("first", dict())] + [(f"matcher seed {s}", dict(matcher_seed=s))
+                                          for s in args.matcher_seeds]
+        else:
+            runs = [("first", dict()), ("warm", dict())] + (
+                [("profiled", dict(profile=True))] if args.profile else [])
+        for label, kw in runs:
+            res = run(paths, extrinsics, **kw)
             for line in describe(label, res):
                 print(line, flush=True)
     return 0

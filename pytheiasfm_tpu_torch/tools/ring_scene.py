@@ -6,6 +6,13 @@ view (about 3,400 track features per view), filled up with random
 distractor features to 4096 features of 128-D unit descriptors per view.
 Pixel noise 0.5 px; descriptor noise 0.05 per observation. Everything is
 made with numpy from a seed.
+
+Every camera looks at the centre of the cloud, so all principal axes meet
+there: the configuration in which Bougnoux's focal lengths from a
+fundamental matrix are undefined. `look_jitter` > 0 moves each camera's
+look-at point off the centre by a draw from the seed (uniform in a box of
+that half-width, a separate stream, so the rest of the scene is unchanged),
+for the uncalibrated path.
 """
 
 from __future__ import annotations
@@ -15,6 +22,9 @@ import numpy as np
 from ..ops.rotation_np import angle_axis_to_rotation_matrix_np
 
 __all__ = [
+    "UNCALIBRATED_LOOK_JITTER",
+    "covisible_correspondences",
+    "focal_and_rotation_errors",
     "ring_scene",
     "rotation_error_deg",
     "shares_tracks",
@@ -31,6 +41,13 @@ NUM_FEATURES = 4096
 DESC_DIM = 128
 PIXEL_NOISE = 0.5
 DESC_NOISE = 0.05
+# The look-at jitter of the uncalibrated runs (metres, x / y / z), chosen
+# on the CPU (`tests/torch_uncalibrated_study.py`): with it the 8-point F
+# on all of a pair's ground-truth correspondences gives the focal length to
+# a median 1.1% (no jitter: no focal length at all); larger boxes that keep
+# the points in frame do no better, for that fit or for the minimal
+# samples of RANSAC (a median 11-13% on 64 pairs).
+UNCALIBRATED_LOOK_JITTER = (0.3, 0.3, 0.6)
 
 
 def view_name(v: int) -> str:
@@ -43,21 +60,28 @@ def shares_tracks(a: int, b: int, num_views: int = NUM_VIEWS) -> bool:
 
 
 def ring_scene(
-    seed: int = 0, num_tracks: int = NUM_TRACKS, num_features: int = NUM_FEATURES
+    seed: int = 0, num_tracks: int = NUM_TRACKS, num_features: int = NUM_FEATURES,
+    look_jitter=0.0,
 ):
     """Returns (views, rotations, track_ids): views a list of (keypoints
     [F, 2], descriptors [F, 128] f32), rotations the ground-truth
     world-to-camera rotations [V, 3, 3], track_ids a list of [F] int arrays,
-    each feature's track (-1 for distractors)."""
+    each feature's track (-1 for distractors). `look_jitter`: the half-width
+    (metres; a number, or one for each axis) of the box the look-at points
+    are drawn from (0: the centre)."""
     rng = np.random.default_rng(seed)
     V = NUM_VIEWS
     angles = 2 * np.pi * np.arange(V) / V
     centers = np.stack(
         [10 * np.cos(angles), 10 * np.sin(angles), rng.uniform(-0.3, 0.3, V)], -1
     )
+    targets = np.zeros((V, 3))
+    if np.any(np.asarray(look_jitter) > 0):
+        half = np.broadcast_to(np.asarray(look_jitter, np.float64), (3,))
+        targets = np.random.default_rng([seed, 1]).uniform(-half, half, (V, 3))
     rots = []
-    for c in centers:
-        z = -c / np.linalg.norm(c)
+    for c, target in zip(centers, targets):
+        z = (target - c) / np.linalg.norm(target - c)
         x = np.cross([0.0, 0.0, 1.0], z)
         x /= np.linalg.norm(x)
         rots.append(np.stack([x, np.cross(z, x), z]))
@@ -102,3 +126,36 @@ def track_ids_of(keypoints, view_keypoints, view_track_ids):
     pos = np.clip(np.searchsorted(key[order], q), 0, len(key) - 1)
     idx = order[pos]
     return np.where(key[idx] == q, np.asarray(view_track_ids)[idx], -2)
+
+
+def covisible_correspondences(views, track_ids):
+    """The ground-truth correspondences of every pair of views that shares
+    tracks: (pairs [(a, b)], points1, points2 [P, K, 2] pixels, mask
+    [P, K]), each pair's rows first."""
+    pairs = [(a, b) for a in range(NUM_VIEWS) for b in range(a + 1, NUM_VIEWS)
+             if shares_tracks(a, b)]
+    rows = []
+    for a, b in pairs:
+        common, ia, ib = np.intersect1d(track_ids[a], track_ids[b], return_indices=True)
+        keep = common >= 0
+        rows.append((views[a][0][ia[keep]], views[b][0][ib[keep]]))
+    K = max(len(r[0]) for r in rows)
+    points1 = np.zeros((len(pairs), K, 2))
+    points2 = np.zeros((len(pairs), K, 2))
+    mask = np.zeros((len(pairs), K), bool)
+    for i, (x1, x2) in enumerate(rows):
+        points1[i, : len(x1)] = x1
+        points2[i, : len(x2)] = x2
+        mask[i, : len(x1)] = True
+    return pairs, points1, points2, mask
+
+
+def focal_and_rotation_errors(pairs, focal1, focal2, rotations, rots):
+    """(median |f / FOCAL - 1| over both views of every pair, median
+    relative-rotation error in degrees) of estimated focal lengths [P] and
+    relative rotations [P, 3, 3] of `pairs` against the scene's `rots`."""
+    f = np.concatenate([np.asarray(focal1, np.float64), np.asarray(focal2, np.float64)])
+    errs = [float(np.degrees(np.arccos(np.clip(
+        (np.trace(np.asarray(R, np.float64) @ (rots[b] @ rots[a].T).T) - 1) / 2, -1, 1))))
+        for R, (a, b) in zip(rotations, pairs)]
+    return float(np.median(np.abs(f / FOCAL - 1))), float(np.median(errs))

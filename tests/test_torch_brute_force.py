@@ -14,6 +14,7 @@ import torch
 
 from pytheiasfm_tpu.matching import brute_force as jbf
 from pytheiasfm_tpu_torch.matching import brute_force as tbf
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _rand_unit(rng, n, d):

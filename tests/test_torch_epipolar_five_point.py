@@ -27,6 +27,7 @@ from pytheiasfm_tpu_torch.ops import five_point as tfp
 from pytheiasfm_tpu_torch.ops import polynomial as tpoly
 from pytheiasfm_tpu_torch.ops import rotation as trot
 from pytheiasfm_tpu_torch.ops import triangulation as ttri
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _close(t, j, rtol=1e-8, atol=1e-10):

@@ -19,6 +19,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from pytheiasfm_tpu_torch.tools import exp_matcher_roofline as k2
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 TOOL = Path(__file__).resolve().parent.parent / "tools" / "exp_matcher_roofline.py"
 

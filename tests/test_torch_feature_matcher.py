@@ -32,7 +32,7 @@ from pytheiasfm_tpu_torch.matching import (
 )
 from pytheiasfm_tpu_torch.matching import streaming_matcher as sm
 from pytheiasfm_tpu_torch.ops.rotation_np import angle_axis_to_rotation_matrix_np
-from pytheiasfm_tpu_torch.sfm.reconstruction import CameraIntrinsicsPrior
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _rand_unit(rng, n, d):
@@ -135,15 +135,6 @@ def test_default_options_match_jax(scene, guided):
         nj, nt = j.twoview_info.num_verified_matches, t.twoview_info.num_verified_matches
         assert abs(nt - nj) <= 0.02 * nj
         assert len(t.correspondences1) == nt >= topt.min_num_feature_matches
-
-
-def test_uncalibrated_pair_raises(scene):
-    m = FeatureMatcher(convert.feature_matcher_options(_options(True)), device="cpu")
-    for name, kps, descs, prior in scene:
-        m.add_image(name, kps, descs, CameraIntrinsicsPrior(
-            image_width=prior.image_width, image_height=prior.image_height))
-    with pytest.raises(NotImplementedError, match="focal-length prior"):
-        m.match_images()
 
 
 def test_default_device_is_the_card():

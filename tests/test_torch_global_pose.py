@@ -55,6 +55,7 @@ from pytheiasfm_tpu_torch.ops.rotation_np import (
 from pytheiasfm_tpu_torch.pipelines import synthetic_global as tsg
 from pytheiasfm_tpu_torch.sfm.global_estimator import GlobalReconstructionEstimator
 from pytheiasfm_tpu_torch.tools.global_pose import contaminate
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 SMALL = dict(V=48, T=4000, neighborhood=6)
 

@@ -37,6 +37,7 @@ from pytheiasfm_tpu_torch.global_pose import position_estimator as tpos
 from pytheiasfm_tpu_torch.global_pose import rotation_estimator as trot
 from pytheiasfm_tpu_torch.sfm.global_estimator import GlobalReconstructionEstimator
 from pytheiasfm_tpu_torch.tools import global_pose as gp
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 
 # Full size only; see above.

@@ -11,6 +11,7 @@ import pytest
 from pytheiasfm_tpu.math import graph as jgraph
 from pytheiasfm_tpu_torch import native
 from pytheiasfm_tpu_torch.math import graph as tgraph
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _random_graph(rng, n=40, p=0.2):

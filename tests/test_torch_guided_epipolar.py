@@ -24,6 +24,7 @@ from pytheiasfm_tpu_torch import convert
 from pytheiasfm_tpu_torch.matching.guided_epipolar import GuidedEpipolarMatcher as TGuided
 from pytheiasfm_tpu_torch.matching.guided_epipolar import guided_epipolar_match as tmatch
 from pytheiasfm_tpu_torch.tools import ring_scene as rs
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 FOCAL = 800.0
 PP = (400.0, 300.0)

@@ -15,6 +15,7 @@ import torch
 
 from pytheiasfm_tpu.math import l1 as jl1
 from pytheiasfm_tpu_torch.math import l1 as tl1
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 REL = 1e-9
 

@@ -25,6 +25,7 @@ from pytheiasfm_tpu_torch.ops.rotation import angle_axis_to_rotation_matrix
 from pytheiasfm_tpu_torch.ransac import engine as teng
 from pytheiasfm_tpu_torch.ransac import estimators as test_
 from pytheiasfm_tpu_torch.sfm import two_view as ttv
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _rotation(aa):
@@ -96,19 +97,6 @@ def test_ransac_with_its_own_generator(rng):
         assert inl[:70].all() and inl[70:].mean() < 0.2
     sample = teng._draw_samples(gen, torch.ones(2, 9, dtype=torch.bool), 50, 5)
     assert all(len(set(s.tolist())) == 5 for s in sample.reshape(-1, 5))
-
-
-def test_unported_ransac_variants_raise():
-    data = test_.TwoViewData(torch.zeros(1, 8, 2), torch.zeros(1, 8, 2))
-    gen = torch.Generator()
-    for params, quality in (
-        (teng.RansacParameters(use_lo=True), "mle"),
-        (teng.RansacParameters(sampler="prosac"), "mle"),
-        (teng.RansacParameters(use_Tdd_test=True), "mle"),
-        (teng.RansacParameters(), "lmed"),
-    ):
-        with pytest.raises(NotImplementedError):
-            teng.ransac(gen, data, test_.RELATIVE_POSE_ESTIMATOR, params, quality=quality)
 
 
 FOCAL, W, H = 800.0, 1024, 768

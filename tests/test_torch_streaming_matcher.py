@@ -20,6 +20,7 @@ from pytheiasfm_tpu.matching.pallas_matcher import (
     streaming_top2 as jax_streaming_top2,
 )
 from pytheiasfm_tpu_torch.matching import streaming_matcher as sm
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 BIG = 3.4e38
 

@@ -20,6 +20,7 @@ from pytheiasfm_tpu_torch import convert
 from pytheiasfm_tpu_torch.pipelines import synthetic_global as tsg
 from pytheiasfm_tpu_torch.sfm import estimator_options as topts
 from pytheiasfm_tpu_torch.sfm.reconstruction import CameraIntrinsicsPrior, Reconstruction
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 SCENE = dict(V=48, T=4000, neighborhood=6)
 TOL = 1e-9

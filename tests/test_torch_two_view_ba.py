@@ -25,6 +25,7 @@ from pytheiasfm_tpu.sfm import two_view_match_geometric_verification as jgv
 from pytheiasfm_tpu_torch.ba import losses as tlosses
 from pytheiasfm_tpu_torch.ba import two_view as ttv
 from pytheiasfm_tpu_torch.sfm import two_view_match_geometric_verification as tgv
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _rot(rng, scale=0.5):

@@ -42,6 +42,7 @@ from pytheiasfm_tpu_torch.sfm.two_view_match_geometric_verification import (
     TwoViewMatchGeometricVerification as TVerify,
 )
 from test_two_view_verification import _synthetic_pair
+from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _angle(a, b):
@@ -118,11 +119,17 @@ def test_estimate_two_view_info_single_pair():
     assert _angle(tinfo.rotation_2, jinfo.rotation_2) < 1e-2
     assert abs(len(tidx) - len(jidx)) <= 0.02 * len(jidx)
     assert _angle(tinfo.rotation_2, aa_gt) < 1e-2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttv.estimate_two_view_info(
-            torch.Generator(), ttv.EstimateTwoViewInfoOptions(), tprior,
-            CameraIntrinsicsPrior(image_width=800, image_height=600),
-            feats1.keypoints, feats2.keypoints, device="cpu")
+    # One side without a focal prior: the uncalibrated path, whose focal
+    # lengths come from one minimal sample (held statistically in
+    # tests/test_torch_uncalibrated_verification.py).
+    uinfo, uidx = ttv.estimate_two_view_info(
+        torch.Generator().manual_seed(0), ttv.EstimateTwoViewInfoOptions(), tprior,
+        CameraIntrinsicsPrior(image_width=800, image_height=600),
+        feats1.keypoints, feats2.keypoints, device="cpu")
+    assert len(uidx) >= 0.95 * len(feats1.keypoints)
+    assert _angle(uinfo.rotation_2, aa_gt) < np.radians(3.0)
+    assert abs(uinfo.focal_length_1 / 800.0 - 1) < 0.3
+    assert abs(uinfo.focal_length_2 / 800.0 - 1) < 0.3
 
 
 def _both(opts_kw, feats1, feats2, prior, matches):
@@ -169,7 +176,8 @@ def test_verify_matches_matches_jax(guided):
 
 def test_verify_matches_rejections_match_jax():
     """tests/test_two_view_verification.py:116-133: too few and garbage
-    matches are rejected by both packages; an uncalibrated pair raises."""
+    matches are rejected by both packages; the port rejects them on an
+    uncalibrated pair too, and verifies that pair's correct matches."""
     feats1, feats2, prior, _, _ = _synthetic_pair(seed=2)
     kw = dict(min_num_inlier_matches=30)
     assert _both(kw, feats1, feats2, prior, [(0, 0)] * 10) == (None, None)
@@ -178,7 +186,13 @@ def test_verify_matches_rejections_match_jax():
                                                  rng.integers(0, 200, 80))]
     assert _both(kw, feats1, feats2, prior, garbage) == (None, None)
     bare = CameraIntrinsicsPrior(image_width=800, image_height=600)
-    v = TVerify(convert.two_view_match_geometric_verification_options(JOptions()), bare, bare, convert.keypoints_and_descriptors(feats1),
-        convert.keypoints_and_descriptors(feats2), [(i, i) for i in range(40)], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        v.verify_matches()
+    f1, f2 = convert.keypoints_and_descriptors(feats1), convert.keypoints_and_descriptors(feats2)
+
+    def uncalibrated(matches):
+        return TVerify(convert.two_view_match_geometric_verification_options(JOptions(**kw)),
+                       bare, bare, f1, f2, matches, device="cpu").verify_matches()
+
+    assert uncalibrated([(0, 0)] * 10) is None
+    assert uncalibrated(garbage) is None
+    verified, info = uncalibrated([(i, i) for i in range(40)])
+    assert verified == [(i, i) for i in range(40)] and info.num_verified_matches == 40
