@@ -1,11 +1,13 @@
-"""Batched non-minimal PnP: the DLT with a Gauss-Newton polish.
+"""Batched non-minimal PnP.
 
-Counterpart of the part of the JAX package's `ops/pnp.py` that the
-calibrated absolute-pose estimator's local optimization takes (`dlt_pnp`,
-`pnp_gauss_newton`); SQPnP and DLS-PnP port with incremental SfM (ROADMAP
-item C1). A DLT initialization (the nullspace of the 2N x 12 design by a
-symmetric eigen-solve), then Gauss-Newton on the reprojection error over
-SO(3) x R^3.
+Counterpart of the JAX package's `ops/pnp.py` (`theia::DlsPnp`,
+`dls_pnp.h:61`; `theia::SQPnP`, `sqpnp.h:70`): a DLT initialization (the
+nullspace of the 2N x 12 design by a symmetric eigen-solve) or the
+SQPnP-style 9x9 quadratic form, then Gauss-Newton on the reprojection
+error over SO(3) x R^3. `dls_pnp` is the JAX package's single-candidate
+shim over `sqpnp`. Every eigen-solve and SVD goes through
+`ops/triangulation`'s chunked wrappers, so batches of any size reach
+cuSOLVER in pieces it takes.
 
 Conventions: `features` are normalized (calibrated) image points [.., N, 2];
 the result is the world->camera rotation R and camera position c
@@ -17,9 +19,9 @@ from __future__ import annotations
 import torch
 
 from . import rotation as rotops
-from .triangulation import _eigh
+from .triangulation import _det3, _eigh, _svd
 
-__all__ = ["dlt_pnp", "pnp_gauss_newton"]
+__all__ = ["dlt_pnp", "sqpnp", "dls_pnp", "pnp_gauss_newton"]
 
 
 def _masked_mean(x, mask, dim):
@@ -121,3 +123,80 @@ def pnp_gauss_newton(features, world_points, R, position, mask=None, iters=5):
         c = c - step[..., 3:]
     ok = torch.all(torch.isfinite(c), dim=-1) & torch.all(torch.isfinite(R_cur).flatten(-2), dim=-1)
     return R_cur, c, ok
+
+
+def _project_to_so3(M):
+    """`rotation.project_to_so3` over any batch (chunked SVD)."""
+    U, _, Vh = _svd(M)
+    det = _det3(U @ Vh)
+    one = torch.ones_like(det)
+    return (U * torch.stack([one, one, det], dim=-1)[..., None, :]) @ Vh
+
+
+def sqpnp(features, world_points, mask=None, gn_iters: int = 8):
+    """SQPnP-class non-minimal PnP, as the JAX package's `sqpnp`
+    (`theia::SQPnP`, `sqpnp.h:70`): the object-space form r^T Omega r over
+    the 9-vector of R (row-major) with t eliminated, seeded by the smallest
+    eigenvector of Omega projected to SO(3) (the better of +-R by the
+    reprojection error), then `gn_iters` Gauss-Newton steps.
+
+    On exact data Omega's null space has max(1, 12 - 2N) dimensions, so
+    below six points (RANSAC's samples have three) the seed is whichever
+    null vector the eigen-solver returns, as in the JAX package.
+    features [.., N, 2], world_points [.., N, 3] ->
+    (R [.., 3, 3], position [.., 3], ok [..]).
+    """
+    dtype, device = features.dtype, features.device
+    eye3 = torch.eye(3, dtype=dtype, device=device)
+    # The projection constraint [I2, -u] (R X + t) = 0 of each point, with u
+    # the homogeneous normalized feature.
+    u = torch.cat([features, torch.ones_like(features[..., :1])], dim=-1)  # [.., N, 3]
+    X = world_points
+    zeros = torch.zeros_like(X)
+    # A_i maps vec(R) (row-major) to R X_i: [.., N, 3, 9].
+    A = torch.stack([
+        torch.cat([X, zeros, zeros], dim=-1),
+        torch.cat([zeros, X, zeros], dim=-1),
+        torch.cat([zeros, zeros, X], dim=-1),
+    ], dim=-2)
+    # Q_i = I - u u^T / ||u||^2 annihilates the ray direction.
+    uu = u / torch.linalg.norm(u, dim=-1, keepdim=True)
+    Qi = eye3 - uu[..., :, None] * uu[..., None, :]
+    if mask is not None:
+        Qi = Qi * mask.to(dtype)[..., None, None]
+    # t elimination: t* = -(sum Q_i)^-1 sum Q_i A_i vec(R).
+    Qsum = torch.sum(Qi, dim=-3) + 1e-9 * eye3
+    QA_sum = torch.sum(Qi @ A, dim=-3)  # [.., 3, 9]
+    P_t = -torch.linalg.solve(Qsum, QA_sum)  # [.., 3, 9]
+    # The residual operator of each point: Q_i (A_i + P_t) vec(R).
+    QB = Qi @ (A + P_t[..., None, :, :])
+    Omega = torch.einsum("...nij,...nik->...jk", QB, QB)  # [.., 9, 9]
+    _, vecs = _eigh(Omega)
+    Rm = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))
+    R = _project_to_so3(Rm)
+    # The eigenvector's sign is arbitrary: take the better of +-R.
+    R_neg = _project_to_so3(-Rm)
+
+    def translation(Rc):
+        return (P_t @ Rc.reshape(Rc.shape[:-2] + (9, 1)))[..., 0]
+
+    def objective(Rc):
+        p_cam = X @ Rc.mT + translation(Rc)[..., None, :]
+        z = torch.clamp(p_cam[..., 2], min=1e-8)
+        err = torch.sum((p_cam[..., :2] / z[..., None] - features) ** 2, dim=-1)
+        if mask is not None:
+            err = err * mask.to(dtype)
+        return torch.sum(err, dim=-1)
+
+    R = torch.where((objective(R_neg) < objective(R))[..., None, None], R_neg, R)
+    position = -(R.mT @ translation(R)[..., None])[..., 0]
+    return pnp_gauss_newton(features, world_points, R, position, mask=mask, iters=gn_iters)
+
+
+def dls_pnp(features, world_points, mask=None):
+    """The JAX package's parity shim for `theia::DlsPnp` (`dls_pnp.h:61`):
+    the DLS method's Macaulay eigendecomposition is replaced by the
+    SQPnP-class solution, returned as a one-candidate list.
+    Returns (R [.., 1, 3, 3], position [.., 1, 3], valid [.., 1])."""
+    R, c, ok = sqpnp(features, world_points, mask=mask)
+    return R[..., None, :, :], c[..., None, :], ok[..., None]

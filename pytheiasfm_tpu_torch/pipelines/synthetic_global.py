@@ -184,8 +184,11 @@ def run(V=553, T=50_000, seed=0, estimator_type="global", calibrated=False, devi
     intrinsics (`reconstruction_estimator_options.h:277-284`); bundle
     adjustment then takes the dense Schur. The default keeps the
     reference-default free focal+radial intrinsics and XYZW_MANIFOLD tracks
-    (the iterative Schur). `estimator_type` is accepted for parity and
-    the estimator is always the global one, as in the JAX package.
+    (the iterative Schur). `estimator_type` is accepted and ignored: the
+    JAX package's `run` hard-codes the global estimator (`:199`), so its
+    "incremental" runs are global ones (ROADMAP.md, section 3), and this
+    copy keeps that for parity. The incremental and hybrid estimators run
+    at scale through `tools/incremental_sfm.py`.
     """
     from ..ba.lm import OptimizeIntrinsicsType, TrackParametrizationType
     from ..sfm.estimator_options import (

@@ -3,8 +3,10 @@
 Counterpart of the JAX package's `ransac/estimators.py`. Ported: the two-view
 estimators (calibrated relative pose, essential and fundamental matrix,
 homography, the uncalibrated relative pose), the calibrated absolute pose
-(P3P) and RANSAC triangulation, each with its local-optimization refit. The
-others raise `NotImplementedError` naming the ROADMAP item that ports them.
+(P3P, and SQPnP / DLS by `PnPType`), the known-orientation absolute and
+relative positions and RANSAC triangulation, each with its
+local-optimization refit where the JAX package has one. The others raise
+`NotImplementedError` naming the ROADMAP item that ports them.
 
 Conventions:
   - "normalized correspondences": calibrated image points (intrinsics
@@ -21,7 +23,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import epipolar, five_point, p3p, pnp, triangulation as tri
+from ..ops import epipolar, five_point, known_rotation as kr, p3p, pnp
+from ..ops import rotation as rotops, triangulation as tri
 from . import engine
 
 __all__ = [
@@ -34,8 +37,12 @@ __all__ = [
     "FundamentalMatrix",
     "HOMOGRAPHY_ESTIMATOR",
     "Homography",
+    "KNOWN_ORIENTATION_ABSOLUTE_POSE_ESTIMATOR",
+    "KNOWN_ORIENTATION_RELATIVE_POSE_ESTIMATOR",
+    "Position",
     "RELATIVE_POSE_ESTIMATOR",
     "RelativePose",
+    "SQPNP_ABSOLUTE_POSE_ESTIMATOR",
     "TRIANGULATION_ESTIMATOR",
     "TriangulatedPoint",
     "TriangulationData",
@@ -446,6 +453,119 @@ def estimate_triangulation(
     )
 
 
+class Position(NamedTuple):
+    """The model of the known-orientation estimators: a camera position
+    (absolute) or a unit relative position (relative). The JAX package
+    returns the bare array."""
+
+    position: torch.Tensor  # [.., 3]
+
+
+def _known_orientation_solver(subset: Corr2D3D):
+    """2-point position: subset [P, B, 2, ...] -> [P, B, 1, 3]."""
+    pos, ok = kr.position_from_two_rays(
+        subset.feature[..., 0, :], subset.world_point[..., 0, :],
+        subset.feature[..., 1, :], subset.world_point[..., 1, :],
+    )
+    return Position(pos[..., None, :]), ok[..., None]
+
+
+def _known_orientation_residuals(model: Position, data: Corr2D3D):
+    """Squared reprojection in the rotated frame: models [P, H, 3] against
+    data [P, N, ...] -> [P, H, N]."""
+    adj = data.world_point[:, None] - model.position[..., None, :]  # [P, H, N, 3]
+    z = adj[..., 2]
+    behind = z < 1e-8
+    reproj = adj[..., :2] / torch.where(behind, torch.ones_like(z), z)[..., None]
+    err = torch.sum((reproj - data.feature[:, None]) ** 2, dim=-1)
+    return torch.where(behind, _BIG, err)
+
+
+KNOWN_ORIENTATION_ABSOLUTE_POSE_ESTIMATOR = engine.Estimator(
+    sample_size=2,
+    solve=_known_orientation_solver,
+    residuals=_known_orientation_residuals,
+)
+
+
+def estimate_absolute_pose_with_known_orientation(
+    generator, rotated_feature, world_point, params: engine.RansacParameters, mask=None, **kw
+):
+    """Parity: `theia::EstimateAbsolutePoseWithKnownOrientation`
+    (estimate_absolute_pose_with_known_orientation.cc), over P problems:
+    the 2-point position solver on world-aligned (pre-rotated,
+    dehomogenized) features [P, N, 2] and world points [P, N, 3]; squared
+    reprojection residual in the rotated frame; no local optimization, as
+    in the JAX package. Returns (Position with leading axis [P],
+    RansacSummary)."""
+    return engine.ransac(
+        generator, Corr2D3D(rotated_feature, world_point),
+        KNOWN_ORIENTATION_ABSOLUTE_POSE_ESTIMATOR, params, mask=mask, **kw,
+    )
+
+
+def _known_orientation_relative_solver(subset: TwoViewData):
+    """2-point relative position: subset [P, B, 2, 2] -> [P, B, 1, 3]."""
+    pos, ok = kr.relative_pose_from_two_points_with_known_rotation(
+        subset.points1, subset.points2)
+    return Position(pos[..., None, :]), ok[..., None]
+
+
+KNOWN_ORIENTATION_RELATIVE_POSE_ESTIMATOR = engine.Estimator(
+    sample_size=2,
+    solve=_known_orientation_relative_solver,
+    residuals=lambda m, d: _sampson_residuals(rotops.hat(m.position), d),
+)
+
+
+def estimate_relative_pose_with_known_orientation(
+    generator, rotated_points1, rotated_points2, params: engine.RansacParameters, mask=None,
+    **kw,
+):
+    """Parity: `theia::EstimateRelativePoseWithKnownOrientation`
+    (estimate_relative_pose_with_known_orientation.cc), over P problems:
+    the 2-point relative-position nullspace solver on world-aligned
+    features [P, N, 2]; Sampson residual on E = [t]_x. Returns (Position,
+    the unit relative position with leading axis [P], RansacSummary)."""
+    return engine.ransac(
+        generator, TwoViewData(rotated_points1, rotated_points2),
+        KNOWN_ORIENTATION_RELATIVE_POSE_ESTIMATOR, params, mask=mask, **kw,
+    )
+
+
+def _sqpnp_solver(subset: Corr2D3D):
+    """SQPnP on the 3-point sample: [P, B, 3, ...] -> [P, B, 1, ...]."""
+    R, pos, ok = pnp.dls_pnp(subset.feature, subset.world_point)
+    return CalibratedAbsolutePose(rotation=R, position=pos), ok
+
+
+# SQPNP and DLS take the same solver: the JAX package's DLS is its SQPnP
+# (`ops/pnp.dls_pnp`).
+SQPNP_ABSOLUTE_POSE_ESTIMATOR = engine.Estimator(
+    sample_size=3,
+    solve=_sqpnp_solver,
+    residuals=_abs_pose_residuals,
+    refine=_abs_pose_refine,
+)
+
+
+def estimate_calibrated_absolute_pose_typed(
+    generator, feature, world_point, params: engine.RansacParameters, pnp_type: int = 0,
+    mask=None, **kw,
+):
+    """`EstimateCalibratedAbsolutePose` honouring `PnPType {KNEIP, SQPNP,
+    DLS}` (`estimate_calibrated_absolute_pose.cc:66-110`, sample size 3 for
+    all), over P problems. `pnp_type` follows
+    `sfm.estimator_options.PnPType`: KNEIP is P3P
+    (`estimate_calibrated_absolute_pose`); SQPNP and DLS are `ops/pnp.sqpnp`
+    on the 3-point sample. All refine by the DLT PnP on the inliers.
+    Returns (CalibratedAbsolutePose with leading axis [P], RansacSummary)."""
+    estimator = ABSOLUTE_POSE_ESTIMATOR if int(pnp_type) == 0 else SQPNP_ABSOLUTE_POSE_ESTIMATOR
+    return engine.ransac(
+        generator, Corr2D3D(feature, world_point), estimator, params, mask=mask, **kw,
+    )
+
+
 def _not_ported(name: str, item: str):
     def estimator(*args, **kwargs):
         raise NotImplementedError(
@@ -457,14 +577,7 @@ def _not_ported(name: str, item: str):
     return estimator
 
 
-# The estimators incremental SfM takes (C1) and the remaining minimal
-# solvers' (E1).
-estimate_absolute_pose_with_known_orientation = _not_ported(
-    "estimate_absolute_pose_with_known_orientation", "C1")
-estimate_calibrated_absolute_pose_typed = _not_ported(
-    "estimate_calibrated_absolute_pose_typed", "C1")
-estimate_relative_pose_with_known_orientation = _not_ported(
-    "estimate_relative_pose_with_known_orientation", "E1")
+# The remaining minimal solvers' estimators (E1).
 estimate_uncalibrated_absolute_pose = _not_ported("estimate_uncalibrated_absolute_pose", "E1")
 estimate_radial_dist_uncalibrated_absolute_pose = _not_ported(
     "estimate_radial_dist_uncalibrated_absolute_pose", "E1")

@@ -132,8 +132,7 @@ class ReconstructionBuilder:
     def build_reconstruction(self) -> list[Reconstruction]:
         """Parity: `BuildReconstruction` (`reconstruction_builder.h:186`):
         track building, then the multi-model estimation loop: each round
-        extracts the estimated sub-model and retries on the leftovers.
-        INCREMENTAL and HYBRID estimators raise (not ported: ROADMAP C1)."""
+        extracts the estimated sub-model and retries on the leftovers."""
         opt = self.options
         self.track_builder.build_tracks(self.reconstruction)
 

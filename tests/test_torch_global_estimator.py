@@ -53,6 +53,8 @@ from pytheiasfm_tpu_torch.models.intrinsics import OptimizeIntrinsicsType as TOI
 from pytheiasfm_tpu_torch.pipelines import synthetic_global as tsg
 from pytheiasfm_tpu_torch.sfm import estimator_options as topts
 from pytheiasfm_tpu_torch.sfm.global_estimator import GlobalReconstructionEstimator
+from pytheiasfm_tpu_torch.sfm.hybrid_estimator import HybridReconstructionEstimator
+from pytheiasfm_tpu_torch.sfm.incremental_estimator import IncrementalReconstructionEstimator
 from pytheiasfm_tpu_torch.sfm.reconstruction_estimator import create_reconstruction_estimator
 from pytheiasfm_tpu_torch.tools import global_sfm
 from pytheiasfm_tpu_torch.transforms import alignment as talign
@@ -225,11 +227,13 @@ def test_alignment_of_reconstructions():
 def test_create_reconstruction_estimator():
     est = create_reconstruction_estimator(device="cpu")
     assert isinstance(est, GlobalReconstructionEstimator)
-    for kind in ("INCREMENTAL", "HYBRID"):
+    # The incremental and hybrid estimators, on the device given.
+    for kind, cls in (("INCREMENTAL", IncrementalReconstructionEstimator),
+                      ("HYBRID", HybridReconstructionEstimator)):
         options = topts.ReconstructionEstimatorOptions(
             reconstruction_estimator_type=topts.ReconstructionEstimatorType[kind])
-        with pytest.raises(NotImplementedError, match="C1"):
-            create_reconstruction_estimator(options, device="cpu")
+        est = create_reconstruction_estimator(options, device="cpu")
+        assert isinstance(est, cls) and est.device == torch.device("cpu")
     # The calibrated configuration runs, through the dense Schur.
     got = tsg.run(V=24, T=1500, calibrated=True, device="cpu")
     assert got["success"] and got["views"] == 24

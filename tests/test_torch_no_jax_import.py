@@ -25,8 +25,11 @@ assert not any(k == "jax" or k.startswith(("jax.", "pytheiasfm_tpu."))
 print(" ".join(names))
 """
 
-# Modules added with the uncalibrated path and the RANSAC variants.
-_NEW_MODULES = ("math.sprt", "ops.p3p", "ops.pnp", "tools.localization")
+# Modules added with the uncalibrated path and the RANSAC variants, and with
+# localization and the incremental and hybrid estimators.
+_NEW_MODULES = ("math.sprt", "ops.p3p", "ops.pnp", "tools.localization", "ops.known_rotation",
+                "sfm.localize", "sfm.incremental_estimator", "sfm.hybrid_estimator",
+                "tools.incremental_sfm")
 
 
 def test_every_port_module_imports_without_jax():

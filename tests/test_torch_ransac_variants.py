@@ -375,9 +375,6 @@ def test_other_estimators_with_own_generator(rng):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("estimate_absolute_pose_with_known_orientation", "C1"),
-    ("estimate_calibrated_absolute_pose_typed", "C1"),
-    ("estimate_relative_pose_with_known_orientation", "E1"),
     ("estimate_uncalibrated_absolute_pose", "E1"),
     ("estimate_radial_dist_uncalibrated_absolute_pose", "E1"),
     ("estimate_similarity_transformation_2d_3d", "E1"),
