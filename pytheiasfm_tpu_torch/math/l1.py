@@ -13,7 +13,15 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["conjugate_gradient", "admm_l1", "irls_solve"]
+__all__ = ["conjugate_gradient", "admm_l1", "irls_solve", "seeded_normal"]
+
+
+def seeded_normal(shape, dtype, device, seed: int):
+    """A standard normal draw of `shape` from a CPU generator seeded `seed`,
+    then moved to `device`: the same start on every device. The solvers'
+    random starts (the JAX package draws them from `jax.random`)."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=dtype).to(device)
 
 
 def conjugate_gradient(matvec, b, x0=None, iters: int = 50, precond=None):

@@ -10,10 +10,10 @@ the reference-default options, the dense Schur with constant intrinsics)
 with outlier removal and retriangulation.
 
 Steps 1-7 (`_estimate_poses`) are also what `tools/global_pose.py` runs and
-times stage by stage. Not ported, each raising `NotImplementedError` that
-names its ROADMAP item: the rotation estimators other than ROBUST_L1L2 and
-the position estimators other than LUD (D1), the maximal rigid subgraph
-filter (D1), a device mesh (G1).
+times stage by stage. Every rotation and position estimator type of the
+JAX package runs, and the maximal parallel-rigid subgraph
+(`extract_maximal_rigid_subgraph`). A device mesh raises
+`NotImplementedError` (ROADMAP item G1).
 """
 
 from __future__ import annotations
@@ -180,10 +180,14 @@ class GlobalReconstructionEstimator:
                 device=device,
             )
             if opt.extract_maximal_rigid_subgraph:
-                raise NotImplementedError(
-                    "extract_maximally_parallel_rigid_subgraph is not ported yet "
-                    "(ROADMAP item D1)"
+                # Parity: FilterRotations' rigid-subgraph step
+                # (extract_maximally_parallel_rigid_subgraph.h:63).
+                filters.extract_maximally_parallel_rigid_subgraph(
+                    orientations, view_graph, device=device
                 )
+                for v in list(orientations):
+                    if not view_graph.has_view(v):
+                        orientations.pop(v)
             for v in view_graph.remove_disconnected_view_pairs():
                 orientations.pop(v, None)
             edges["orientation filter"] = frozenset(view_graph.edges)

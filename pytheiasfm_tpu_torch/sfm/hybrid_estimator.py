@@ -39,8 +39,8 @@ class HybridReconstructionEstimator(_GrowingEstimator):
     """Parity: `theia::HybridReconstructionEstimator`
     (`hybrid_reconstruction_estimator.h:86`). `device`: where the numeric
     stages run (None: the CUDA card). The global rotations come from
-    `global_pose.rotation_estimator.estimate_rotations` (ROBUST_L1L2; the
-    other types raise, ROADMAP item D1)."""
+    `global_pose.rotation_estimator.estimate_rotations`, of any of its five
+    types (`global_rotation_estimator_type`)."""
 
     def estimate(self, view_graph, recon) -> ReconstructionEstimatorSummary:
         opt = self.options

@@ -2,6 +2,7 @@
 
     python -m pytheiasfm_tpu_torch.tools.global_sfm [--calibrated] [--profile]
         [--views V] [--tracks T] [--seed S]
+        [--rotation TYPE] [--position TYPE] [--rigid-subgraph]
 
 Runs `pipelines.synthetic_global.run()` (by default 553 views, 50,000
 tracks, seed 0; `--views 2152 --tracks 100000` is the repository's largest
@@ -14,24 +15,21 @@ round (LM iterations, PCG steps, cost before and after, outliers removed,
 seconds, and the iterative kernel's size gates), the peak device memory and
 the accuracy against ground truth. With `--profile` a third run goes under
 `torch.profiler`: each stage's kernel launches and their device time, and
-the share of the stage the device was busy.
+the share of the stage the device was busy. `--rotation`, `--position` and
+`--rigid-subgraph` set the estimator types and
+`extract_maximal_rigid_subgraph` as `tools/global_pose.py` does.
 """
 
 from __future__ import annotations
 
 import argparse
 import subprocess
-import time
 
-import numpy as np
 import torch
 
-from .. import default_device
 from ..pipelines import synthetic_global
-from ..sfm.estimator_options import ReconstructionEstimatorOptions
-from ..sfm.global_estimator import POSE_STAGES, GlobalReconstructionEstimator
-from ..utils.timing import StageTimer
-from .global_pose import contaminate
+from ..sfm.global_estimator import POSE_STAGES
+from .global_pose import POSITION_TYPES, ROTATION_TYPES, estimator_options
 
 STAGES = POSE_STAGES + ("triangulation", "bundle adjustment")
 
@@ -67,29 +65,9 @@ def describe(label, res) -> list[str]:
 
 
 def run_contaminated(V=553, T=50_000, seed=0, device=None, **scene):
-    """`estimate` at the reference-default options on
-    `synthetic_global.build_scene`'s view graph (`scene`: its other
-    arguments) after `contaminate` (15% of its edges corrupted in rotation
-    and direction). Returns the run's counts, accuracy and seconds:
-    `run()`'s keys that apply, plus `estimated_views`, `removed_edges`
-    (each filter's count) and `corrupted` (the corrupted edges)."""
-    device = default_device(device)
-    recon, graph, gt_positions = synthetic_global.build_scene(V=V, T=T, seed=seed, **scene)
-    corrupted = contaminate(graph)
-    estimator = GlobalReconstructionEstimator(ReconstructionEstimatorOptions(rng_seed=seed),
-                                              device=device)
-    timer = StageTimer(device)
-    t0 = time.perf_counter()
-    summary = estimator.estimate(graph, recon, timer)
-    t_total = time.perf_counter() - t0
-    est_ids, err = synthetic_global.position_errors(recon, gt_positions)
-    return dict(success=bool(summary.success), views=len(est_ids), views_total=V,
-                estimated_views=summary.estimated_views,
-                tracks=recon.num_tracks(), estimated_tracks=len(summary.estimated_tracks),
-                t_total_s=t_total, median_pos_err=float(np.median(err)),
-                mean_pos_err=float(np.mean(err)), ba_rounds=estimator.bundle_adjustment_rounds,
-                removed_edges=estimator.removed_edges, corrupted=corrupted, launches={},
-                stage_seconds=timer.seconds)
+    """`synthetic_global.run` at the reference-default options on the
+    contaminated graph (phase 9 of `chip_smoke.py`)."""
+    return synthetic_global.run(V=V, T=T, seed=seed, device=device, contaminated=True, **scene)
 
 
 def main(argv=None) -> int:
@@ -101,7 +79,15 @@ def main(argv=None) -> int:
     parser.add_argument("--views", type=int, default=553, help="views of the scene")
     parser.add_argument("--tracks", type=int, default=50_000, help="tracks of the scene")
     parser.add_argument("--seed", type=int, default=0, help="the scene's and estimator's seed")
+    parser.add_argument("--rotation", choices=sorted(ROTATION_TYPES),
+                        help="the rotation estimator (default ROBUST_L1L2)")
+    parser.add_argument("--position", choices=sorted(POSITION_TYPES),
+                        help="the position estimator (default LEAST_UNSQUARED_DEVIATION)")
+    parser.add_argument("--rigid-subgraph", action="store_true",
+                        help="keep only the maximal parallel-rigid subgraph after step 4")
     args = parser.parse_args(argv)
+    options = estimator_options(args.rotation, args.position, args.rigid_subgraph,
+                                rng_seed=args.seed)
     if not torch.cuda.is_available():
         raise SystemExit("global_sfm: needs a CUDA card")
     smi = subprocess.run(
@@ -113,7 +99,7 @@ def main(argv=None) -> int:
     for label, profile in runs:
         torch.cuda.reset_peak_memory_stats()
         res = synthetic_global.run(V=args.views, T=args.tracks, seed=args.seed,
-                                   calibrated=args.calibrated, profile=profile)
+                                   calibrated=args.calibrated, profile=profile, options=options)
         for line in describe(label, res):
             print(line, flush=True)
         print(f"[{label}] peak device memory "

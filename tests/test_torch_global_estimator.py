@@ -158,6 +158,71 @@ def test_calibrated_estimate_matches_jax(calibrated_runs):
     np.testing.assert_array_equal(tr.intrinsics, convert.reconstruction(_scene(noise)[0]).intrinsics)
 
 
+# The rest of global pose in one run: LAGRANGE_DUAL rotations, BATA
+# positions (`GlobalPositionEstimatorType.BATA` of the estimators' module;
+# the options' enum stops at LIGT in both packages) and the maximal
+# parallel-rigid subgraph.
+REST_OPTIONS = dict(global_rotation_estimator_type=3, global_position_estimator_type=4,
+                    extract_maximal_rigid_subgraph=True)
+
+
+def test_estimate_with_the_rest_of_global_pose_matches_jax():
+    """`estimate` with `REST_OPTIONS` on the 1-deg scene, held by the bars of
+    `test_estimate_matches_jax` against the JAX estimator with the same
+    options."""
+    recon, graph, gt_ext = _scene(1.0)
+    trecon, tgraph = convert.reconstruction(recon), convert.view_graph(graph)
+    options = dict(min_num_two_view_inliers=20, num_retriangulation_iterations=1,
+                   **REST_OPTIONS)
+    jsum = JEstimator(JOptions(**options)).estimate(graph, recon)
+    tsum = GlobalReconstructionEstimator(topts.ReconstructionEstimatorOptions(**options),
+                                         device="cpu").estimate(tgraph, trecon)
+    assert tsum.success and jsum.success, tsum.message
+    assert tsum.estimated_views == jsum.estimated_views
+    assert len(tsum.estimated_views) == 8
+    sym = tsum.estimated_tracks ^ jsum.estimated_tracks
+    assert len(sym) <= TRACK_SHARE_TOL * trecon.num_tracks(), len(sym)
+    ids = sorted(tsum.estimated_views)
+    mine = torch.as_tensor(trecon.view_extrinsics[ids, :3])
+    want = torch.as_tensor(recon.view_extrinsics[ids, :3])
+    R, t, s = talign.align_point_clouds_umeyama(mine, want)
+    gap = float(torch.linalg.norm(talign.sim3_transform_points(mine, R, t, s) - want, dim=-1).max())
+    assert gap <= POSITION_TOL, gap
+    assert _ate(trecon, gt_ext) < ATE_BAR[1.0]
+
+
+def test_hybrid_estimator_with_lagrange_dual_rotations():
+    """The hybrid estimator with LAGRANGE_DUAL rotations on the hybrid scene
+    of `test_torch_incremental_estimator.py` (7 views, seed 9, edges seed
+    2, the JAX tests' options). Its step 1 is `estimate_rotations`: held to
+    the JAX package's LAGRANGE_DUAL on the same graph (1e-6 rad, each
+    aligned to the MST start; the staircase's starts are drawn apart), the
+    run to ground truth by the bar of the JAX hybrid test (ATE below 0.1)
+    with every view estimated. The rest of the estimator is held to the
+    JAX package's by `test_torch_incremental_estimator.py`."""
+    import test_torch_global_pose as S
+    from pytheiasfm_tpu.global_pose import rotation_estimator as jrot
+    from pytheiasfm_tpu_torch.global_pose import rotation_estimator as trot
+    from test_incremental_estimator import _ate as ate_and_count
+    from test_torch_incremental_estimator import OPTIONS, SCENES
+
+    seed, edge_seed = SCENES["hybrid"]
+    recon, gt_ext, _ = jsyn.generate_scene(
+        jsyn.SyntheticSceneOptions(num_views=7, num_tracks=300, pixel_noise=0.3, seed=seed))
+    graph = jsyn.add_view_graph_edges(recon, gt_ext, min_shared_tracks=100, seed=edge_seed)
+    trecon, tgraph = convert.reconstruction(recon), convert.view_graph(graph)
+    want = jrot.estimate_rotations(graph, 3)
+    assert S.rotation_angle_diff(trot.estimate_rotations(tgraph, 3, device="cpu"), want) <= 1e-6
+    estimator = HybridReconstructionEstimator(
+        topts.ReconstructionEstimatorOptions(**OPTIONS, global_rotation_estimator_type=3),
+        device="cpu")
+    got = estimator.estimate(tgraph, trecon)
+    assert got.success, got.message
+    assert len(got.estimated_views) == 7
+    ate, _ = ate_and_count(trecon, gt_ext)
+    assert ate < 0.1
+
+
 def test_estimate_reports_its_stages(runs):
     _, _, _, (tr, tsum, est, launches) = runs
     for name in ("rotation_estimation_time", "position_estimation_time",

@@ -48,11 +48,14 @@ from pytheiasfm_tpu_torch.global_pose import rotation_estimator as trot
 from pytheiasfm_tpu_torch.global_pose.pairwise_translation import (
     optimize_relative_positions_with_known_rotations,
 )
+from pytheiasfm_tpu_torch.ops import rotation as rotops
+from pytheiasfm_tpu_torch.ops import triangulation as tri
 from pytheiasfm_tpu_torch.ops.rotation_np import (
     angle_axis_to_rotation_matrix_np,
     rotation_matrix_to_angle_axis_np,
 )
 from pytheiasfm_tpu_torch.pipelines import synthetic_global as tsg
+from pytheiasfm_tpu_torch.sfm import global_estimator as tge
 from pytheiasfm_tpu_torch.sfm.global_estimator import GlobalReconstructionEstimator
 from pytheiasfm_tpu_torch.tools.global_pose import contaminate
 from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
@@ -94,6 +97,17 @@ def scene(kind, **size):
     return recon, graph, gt_positions, np.asarray(gt_aa), bad
 
 
+def jax_options(options):
+    """The JAX package's `ReconstructionEstimatorOptions` with a port options
+    object's estimator types, rigid-subgraph switch and seed."""
+    return ReconstructionEstimatorOptions(
+        global_rotation_estimator_type=int(options.global_rotation_estimator_type),
+        global_position_estimator_type=int(options.global_position_estimator_type),
+        extract_maximal_rigid_subgraph=options.extract_maximal_rigid_subgraph,
+        rng_seed=options.rng_seed,
+    )
+
+
 def jax_steps(recon, graph, options=None):
     """Steps 1-7 of the JAX estimator in `estimate`'s order, on copies.
     Returns a dict of each stage's graph (a copy after the stage), the
@@ -117,6 +131,12 @@ def jax_steps(recon, graph, options=None):
         g, orientations, opt.rotation_filtering_max_difference_degrees
     )
     out["removed_orientation"] = before - set(g.edges)
+    if opt.extract_maximal_rigid_subgraph:
+        out["rigid_removed_views"] = jfilters.extract_maximally_parallel_rigid_subgraph(
+            orientations, g)
+        for v in list(orientations):
+            if not g.has_view(v):
+                orientations.pop(v)
     for v in g.remove_disconnected_view_pairs():
         orientations.pop(v, None)
     out["graph_orientation"] = copy.deepcopy(g)
@@ -274,6 +294,46 @@ def test_pairwise_translations(ref):
     assert np.max(1.0 - cos) <= DIRECTION_TOL
 
 
+def test_pairwise_translations_where_no_sign_has_a_majority(ref, monkeypatch):
+    """Step 5 from wrong orientations (random draws), as after a rotation
+    estimator that failed: the same line for every edge in both packages,
+    and the same sign wherever one sign puts a majority of the shared
+    points in front of both cameras. Where neither does, the vote of both
+    packages keeps the eigenvector's sign or flips it by the count for that
+    sign, and the eigenvector's sign is the eigen-solver's: LAPACK's in
+    JAX, PyTorch's, cuSOLVER's on the card, so the sign may differ there."""
+    rng = np.random.default_rng(5)
+    orientations = {v: rng.normal(size=3) for v in ref["orientations_after_filter"]}
+    want = copy.deepcopy(ref["graph_orientation"])
+    jge.GlobalReconstructionEstimator(ReconstructionEstimatorOptions())\
+        ._optimize_pairwise_translations(want, dict(orientations), copy.deepcopy(ref["recon"]))
+    seen = {}
+
+    def keep(*args):
+        seen["args"], seen["out"] = args, optimize_relative_positions_with_known_rotations(*args)
+        return seen["out"]
+
+    monkeypatch.setattr(tge, "optimize_relative_positions_with_known_rotations", keep)
+    g = convert.view_graph(ref["graph_orientation"])
+    GlobalReconstructionEstimator(device="cpu")._optimize_pairwise_translations(
+        g, dict(orientations), convert.reconstruction(ref["recon"]))
+    rot1, rot2, x1, x2, mask, _ = seen["args"]
+    t, ok = seen["out"]
+    assert ok.all()
+    R_rel = rotops.angle_axis_to_rotation_matrix(rot2) @ rotops.angle_axis_to_rotation_matrix(
+        rot1).mT
+    half = mask.sum(-1) // 2
+    majority = torch.zeros_like(half, dtype=torch.bool)
+    for sign in (1.0, -1.0):
+        front = tri.is_triangulated_point_in_front_of_cameras(
+            x1, x2, R_rel[:, None], sign * t[:, None])
+        majority |= (front & mask).sum(-1) > half
+    cos = np.array([np.dot(g.edges[k].position_2, want.edges[k].position_2) for k in g.edges])
+    assert np.max(1.0 - np.abs(cos)) <= DIRECTION_TOL
+    assert np.all(cos[majority.numpy()] > 0)
+    assert not majority.all()  # the case this test is about occurs
+
+
 def _one_dsfm(filter_fn, g, orientations, **kw):
     before = set(g.edges)
     n = filter_fn(g, orientations, num_iterations=48, translation_projection_tolerance=0.1,
@@ -332,14 +392,17 @@ def test_contaminate_corrupts_its_fixed_share_the_same_on_both_packages():
 
 
 def test_unported_variants_raise():
+    """A device mesh is the one variant left unported (ROADMAP item G1);
+    every estimator type runs (each held to the JAX package in
+    `test_torch_global_pose_estimators.py`)."""
     g = convert.view_graph(scene("clean", V=12, T=600, neighborhood=3)[1])
-    for kind in (1, 2, 3, 4):
-        with pytest.raises(NotImplementedError, match="D1"):
-            trot.estimate_rotations(g, kind, device="cpu")
     with pytest.raises(NotImplementedError, match="G1"):
         trot.estimate_rotations(g, mesh=object(), device="cpu")
-    for kind in (0, 1, 3, 4):
-        with pytest.raises(NotImplementedError, match="D1"):
-            tpos.estimate_positions(g, {}, kind, device="cpu")
     with pytest.raises(NotImplementedError, match="G1"):
         tpos.estimate_positions(g, {}, mesh=object(), device="cpu")
+    orientations = trot.estimate_rotations(g, device="cpu")
+    for kind in (1, 2, 3, 4):
+        assert set(trot.estimate_rotations(g, kind, device="cpu")) == set(g.view_ids())
+    for kind in (0, 1, 3, 4):
+        assert set(tpos.estimate_positions(g, orientations, kind, device="cpu")) == set(
+            g.view_ids())

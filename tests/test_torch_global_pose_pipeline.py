@@ -44,11 +44,12 @@ from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 FULL_SIZE_POSITION_TOL_REL = {"clean": 1e-4, "contaminated": S.POSITION_TOL_REL}
 
 
-def _compare(kind, position_tol=S.POSITION_TOL_REL, **size):
+def _compare(kind, position_tol=S.POSITION_TOL_REL, options=None, **size):
     recon, graph, gt_positions, gt_aa, bad = S.scene(kind, **size)
-    ref = S.jax_steps(recon, graph)
+    ref = S.jax_steps(recon, graph, options and S.jax_options(gp.estimator_options(**options)))
     mine = convert.reconstruction(recon)
-    res = gp.run_global_pose(convert.view_graph(graph), mine, device="cpu")
+    res = gp.run_global_pose(convert.view_graph(graph), mine,
+                             options and gp.estimator_options(**options), device="cpu")
     assert res.success
     assert res.edges["initial filter"] == set(ref["graph_initial"].edges)
     assert res.edges["orientation filter"] == set(ref["graph_orientation"].edges)
@@ -81,6 +82,15 @@ def test_steps_1_to_7_match_jax(kind):
     assert set(res.seconds) == set(gp.STAGES)
 
 
+def test_steps_1_to_7_with_the_rigid_subgraph_match_jax():
+    """`extract_maximal_rigid_subgraph` on (the contaminated scene): the
+    step sits between the orientation filter and the component step in
+    both packages, and the edge sets, orientations and positions agree at
+    the bars above."""
+    res, ref, _, _, _, _, _ = _compare("contaminated", options=dict(rigid_subgraph=True))
+    assert len(res.positions) == S.SMALL["V"] - ref["rigid_removed_views"]
+
+
 def test_steps_1_to_7_stop_where_estimate_stops():
     """A view graph whose edges all fall below `min_num_two_view_inliers`
     stops at step 1, as `estimate` does, with nothing estimated."""
@@ -106,6 +116,9 @@ def test_entry_points_run_on_the_card_unless_asked():
         lambda: tpos.estimate_positions(g, {v: np.zeros(3) for v in g.view_ids()}),
         lambda: tfilters.filter_view_pairs_from_orientation(
             copy.deepcopy(g), {v: np.zeros(3) for v in g.view_ids()}),
+        lambda: tfilters.filter_view_graph_cycles_by_rotation(copy.deepcopy(g)),
+        lambda: tfilters.extract_maximally_parallel_rigid_subgraph(
+            {v: np.zeros(3) for v in g.view_ids()}, copy.deepcopy(g)),
     ]
     if torch.cuda.is_available():
         assert GlobalReconstructionEstimator().device.type == "cuda"

@@ -25,11 +25,13 @@ assert not any(k == "jax" or k.startswith(("jax.", "pytheiasfm_tpu."))
 print(" ".join(names))
 """
 
-# Modules added with the uncalibrated path and the RANSAC variants, and with
-# localization and the incremental and hybrid estimators.
+# Modules added with the uncalibrated path and the RANSAC variants, with
+# localization and the incremental and hybrid estimators, and with the rest
+# of global pose.
 _NEW_MODULES = ("math.sprt", "ops.p3p", "ops.pnp", "tools.localization", "ops.known_rotation",
                 "sfm.localize", "sfm.incremental_estimator", "sfm.hybrid_estimator",
-                "tools.incremental_sfm")
+                "tools.incremental_sfm", "math.sdp", "math.qp",
+                "global_pose.triplet_baseline")
 
 
 def test_every_port_module_imports_without_jax():
