@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: matching, global SfM, images, camera models,
 uncalibrated verification, absolute pose, incremental and hybrid SfM, every global-pose
-estimator.
+estimator, the remaining minimal solvers.
 
     python3 chip_smoke.py
 
@@ -143,7 +143,19 @@ Phases, each printed (flushed) as it ends:
      by the filters' removals: the reference's LAGRANGE_DUAL fails at this
      size) and under ROBUST_L1L2 (held by phase 5's bars), each to the JAX
      package's run with the same options;
- 16. print a {"kernels": [...]} line, the card's name and power limit, and
+ 16. the remaining minimal solvers (`tools.minimal_solvers`): P4Pf and
+     P4Pfr on phase 12's 553 problems as pixels (P4Pfr's distorted), gDLS
+     and UPnP on 138 rigs of 4 neighbouring views, the dominant plane on
+     553 sets of 500 points, the radial homography on 553 sets of 64
+     correspondences, each estimator in one batched call, first and warm
+     (seconds, peak memory, medians), held to ground truth and to the JAX
+     package's CPU run on every problem (gDLS and UPnP pooled over five
+     draws in both); then each of the thirteen minimal solvers on 16,384
+     exact samples in f32 (seconds, its share recovered beside the JAX
+     package's), and in f64 on the first 256-1,024 of them held to the port
+     on the CPU (the same valid solutions to 1e-4 on 98% of samples); K1's
+     and K2's launches on the path;
+ 17. print a {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 It imports nothing of JAX. Without a CUDA card, or outside the repository,
@@ -194,6 +206,7 @@ from pytheiasfm_tpu_torch.tools import image_scene
 from pytheiasfm_tpu_torch.tools import images_sfm
 from pytheiasfm_tpu_torch.tools import incremental_sfm
 from pytheiasfm_tpu_torch.tools import localization
+from pytheiasfm_tpu_torch.tools import minimal_solvers
 from pytheiasfm_tpu_torch.tools import ring_scene as rs
 from pytheiasfm_tpu_torch.utils import counters, cuda_build
 from pytheiasfm_tpu_torch.utils.timing import cuda_time_ms
@@ -526,6 +539,81 @@ REST_RATIO = 1.25
 REST_ROTATION_SLACK_DEG = 1e-3
 REST_POSITION_SLACK = 1e-4
 REST_LINEAR_TRIPLET_TOL_REL = 1e-9
+
+
+# The remaining minimal solvers (phase 16): `tools.minimal_solvers`' six
+# estimators at localization scale (553 P4Pf / P4Pfr problems of 443-565
+# rows, 138 rigs of 4 views, 553 planes, 553 radial homographies) at its
+# ITERATIONS, and its thirteen minimal solvers on 16,384 exact samples each.
+# The JAX package's CPU run of the same estimators on every problem (f32,
+# vmapped over chunks of 8, keys split from PRNGKey(0); gDLS and UPnP from
+# PRNGKey(0..4), their errors pooled: `minimal_solvers.DRAWS`) and of the
+# same solvers on the first 1,024 samples (256 for the radial homography):
+# the medians of `estimator_errors` and the share of problems solved, and
+# the share of samples `recovered`, recorded by
+#   JAX_PLATFORMS=cpu python tests/torch_minimal_solvers_reference.py phase16
+# (JAX 0.9 on the CPU; P4Pf, P4Pfr, the plane and the radial homography on
+# the chip machine's, 6-479 s each; gDLS and UPnP and the solvers on a
+# development host's; no TPU number). On 32 problems the medians of one
+# minimal sample's models move with the draws (P4Pf's rotation median
+# 0.19-0.31 deg over JAX's keys 0-1 and the port's generator seeds), and
+# on the 138 rigs gDLS's scale median moves from 0.68% to 0.90% over five
+# seeds on the card (PERF.md, section 6), so the whole sets are compared,
+# the rigs over five draws in both packages. Each card run (the rigs: the
+# pooled errors): every median within the ground-truth bar of MIN_GT_BARS
+# (the JAX tests' focal 2% and rotation 1 deg; 0.05 on the radial
+# homography's distortions) and at most MIN_RATIO times JAX's, the share
+# solved at least JAX's less 0.05. Each
+# solver: its f32 share recovered on JAX's samples at least JAX's less
+# 0.05; and the card against the port on the CPU on the first
+# MIN_CPU_SUBSET samples in f64, where the solvers are well conditioned:
+# the same set of valid solutions to 1e-4 relative
+# (`minimal_solvers.agreement`) on MIN_SOLVER_AGREEMENT of the samples (the focal
+# solvers keep 4 of up to 28 candidates: where more converge to distinct
+# exact solutions, which are kept is the rounding's; the CPU against
+# itself, its inputs moved by 1e-15, agrees on 99.5% for P4Pfr and 99.8%
+# or more for the others). In f32 the CPU against itself, its inputs moved
+# by one ulp, agrees on 18-100% of the samples (the f32 Gauss-Newton
+# acceptance on costs at rounding level, the sort of candidates whose
+# errors tie there, bisected polynomial roots and the homography's grid
+# cells), and the card against the CPU as often (PERF.md, section 6).
+JAX_CPU_MINIMAL = {
+    "estimators": {
+        "p4pf": {"focal": 0.012989196777343781, "rotation_deg": 0.22960758854138585,
+                 "position": 0.13735507320515686, "solved": 1.0},
+        "p4pfr": {"focal": 0.0137560424804688, "rotation_deg": 0.2512986500318363,
+                  "k1": 0.034838747978210446, "solved": 1.0},
+        "similarity": {"rotation_deg": 0.2524802721908702, "translation": 0.18655048692141638,
+                       "scale": 0.007270240783691373, "solved": 1.0},
+        "rigid": {"rotation_deg": 0.21657004746304587, "translation": 0.013475144174340335,
+                  "solved": 1.0},
+        "plane": {"normal_deg": 0.14336246030874747, "solved": 1.0},
+        "radial_homography": {"l1": 7.684826850890003e-05, "l2": 0.00015369653701780006,
+                              "solved": 1.0},
+    },
+    "solvers": {
+        "p4pf": 0.7333984375, "p5pfr1": 0.93359375, "p5pfr2": 0.8935546875,
+        "p4pfr": 0.765625, "radial_homography": 0.921875, "upnp": 1.0, "mlpnp": 1.0,
+        "gdls": 0.46875, "orthographic": 0.9970703125, "two_point_partial": 0.99609375,
+        "three_point_partial": 0.818359375, "four_point_partial": 0.6240234375,
+        "sim_partial": 0.2744140625,
+    },
+    "solver_samples": {"radial_homography": 256, "default": 1024},
+}
+MIN_GT_BARS = {
+    "p4pf": {"focal": 0.02, "rotation_deg": 1.0},
+    "p4pfr": {"focal": 0.02, "rotation_deg": 1.0},
+    "similarity": {"rotation_deg": 1.0, "scale": 0.02},
+    "rigid": {"rotation_deg": 1.0},
+    "plane": {"normal_deg": 1.0},
+    "radial_homography": {"l1": 0.05, "l2": 0.05},
+}
+MIN_RATIO = 1.25
+MIN_SHARE_TOL = 0.05
+MIN_SAMPLES = 16384
+MIN_CPU_SUBSET = {"radial_homography": 256, "upnp": 256, "mlpnp": 256, "gdls": 256}
+MIN_CPU_SUBSET_DEFAULT = 1024
+MIN_SOLVER_AGREEMENT = 0.98
 
 
 def log(*args):
@@ -1762,6 +1850,95 @@ def phase_rest_of_global_pose(dev):
     return sm.streaming_top2.launches, k2.matmul_rowmin.launches
 
 
+def _minimal_estimator_failures(name, label, got, want):
+    failures = []
+    for key, bar in MIN_GT_BARS[name].items():
+        if not got[key] <= bar:
+            failures.append(f"{name} {label}: median {key} {got[key]!r} over the ground-truth "
+                            f"bar {bar}")
+        if not got[key] <= MIN_RATIO * want[key]:
+            failures.append(f"{name} {label}: median {key} {got[key]!r}, JAX CPU {want[key]!r}")
+    if not got["solved"] >= want["solved"] - MIN_SHARE_TOL:
+        failures.append(f"{name} {label}: solved {got['solved']!r}, JAX CPU {want['solved']!r}")
+    return failures
+
+
+def phase_minimal_solvers(dev):
+    """Phase 16: the six estimators of the remaining minimal solvers at
+    localization scale, first and warm, held to ground truth and to the JAX
+    package's CPU run; then each of the thirteen minimal solvers on 16,384
+    exact samples (f32), its share recovered beside the JAX package's, and
+    in f64 on the first samples held to the port on the CPU. Returns K1's
+    and K2's launches on the path."""
+    sm.streaming_top2.launches = 0
+    k2.matmul_rowmin.launches = 0
+    t_phase = time.perf_counter()
+    want = JAX_CPU_MINIMAL
+    problems = minimal_solvers.build_problems()
+    log(f"[minimal] problems built in {time.perf_counter() - t_phase:.2f} s")
+    failures = []
+    for name in minimal_solvers.ESTIMATORS:
+        # Seed 0 first and warm; where the medians pool DRAWS runs, the
+        # warm runs are seeds 1..n-1 and the pooled medians are held.
+        draws = minimal_solvers.DRAWS.get(name, 1)
+        seeds = [0, 0] if draws == 1 else list(range(draws))
+        errs = []
+        for i, seed in enumerate(seeds):
+            label = "first" if i == 0 else "warm" if draws == 1 else f"warm, seed {seed}"
+            torch.cuda.reset_peak_memory_stats()
+            (model, summary), sec = _timed(
+                minimal_solvers.run_estimator, problems, name,
+                torch.Generator(device=dev).manual_seed(seed), dev)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            errs.append(minimal_solvers.estimator_errors(
+                name, model, summary.num_inliers.cpu().numpy(), problems))
+            got = minimal_solvers.summarize(errs[-1])
+            log(f"[minimal {name} {label}] {problems[name]['mask'].shape[0]} problems at "
+                f"{minimal_solvers.ITERATIONS[name]} hypotheses: {sec:.3f} s, peak device memory "
+                f"{peak:.2f} GiB; {got}" + (f" (JAX CPU {want['estimators'][name]})"
+                                             if draws == 1 else ""))
+            if draws == 1:
+                failures += _minimal_estimator_failures(name, label, got,
+                                                        want["estimators"][name])
+        if draws > 1:
+            got = minimal_solvers.summarize(minimal_solvers.pool(errs))
+            log(f"[minimal {name}] pooled over seeds 0-{draws - 1}: {got} (JAX CPU pooled over "
+                f"keys 0-{draws - 1}: {want['estimators'][name]})")
+            failures += _minimal_estimator_failures(name, f"pooled over {draws} seeds", got,
+                                                    want["estimators"][name])
+    log(f"[minimal] estimators done {time.perf_counter() - t_phase:.1f} s into the phase")
+    for name in minimal_solvers.SOLVERS:
+        inputs, gt = minimal_solvers.minimal_samples(name, MIN_SAMPLES)
+        torch.cuda.reset_peak_memory_stats()
+        card, sec = _timed(minimal_solvers.solve, name, inputs, dev)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = MIN_CPU_SUBSET.get(name, MIN_CPU_SUBSET_DEFAULT)
+        head = [a if a.ndim == 1 else a[:n] for a in inputs]
+        t0 = time.perf_counter()
+        cpu = minimal_solvers.solve(name, head, "cpu", torch.float64)
+        cpu_sec = time.perf_counter() - t0
+        agree = float(np.mean(minimal_solvers.agreement(
+            name, minimal_solvers.solve(name, head, dev, torch.float64), cpu)))
+        share = float(np.mean(minimal_solvers.recovered(name, card, gt)))
+        jn = want["solver_samples"].get(name, want["solver_samples"]["default"])
+        share_j = float(np.mean(minimal_solvers.recovered(
+            name, tuple(x[:jn] for x in card), {k: v[:jn] for k, v in gt.items()})))
+        log(f"[minimal {name}] {MIN_SAMPLES} samples: {sec:.3f} s, peak device memory "
+            f"{peak:.2f} GiB; recovered {share!r}, on the first {jn} {share_j!r} (JAX CPU "
+            f"{want['solvers'][name]!r}); in f64 against the CPU on the first {n} "
+            f"({cpu_sec:.2f} s on the CPU): agreement {agree!r}")
+        if not agree >= MIN_SOLVER_AGREEMENT:
+            failures.append(f"{name}: f64 agreement with the CPU {agree!r}")
+        if not share_j >= want["solvers"][name] - MIN_SHARE_TOL:
+            failures.append(f"{name}: recovered {share_j!r}, JAX CPU {want['solvers'][name]!r}")
+    log(f"[minimal] phase {time.perf_counter() - t_phase:.1f} s; K1 launches on this path "
+        f"{sm.streaming_top2.launches}, K2 launches {k2.matmul_rowmin.launches} (no "
+        "hand-written kernel runs here)")
+    if failures:
+        raise RuntimeError("minimal solver checks failed: " + "; ".join(failures))
+    return sm.streaming_top2.launches, k2.matmul_rowmin.launches
+
+
 def _images_estimator_failures(label, res, want):
 
     views, largest, tracks, rot, pos = want
@@ -1899,7 +2076,10 @@ def main() -> int:
     # 15. The rest of global pose at 553 views.
     rest_k1, rest_k2 = phase_rest_of_global_pose(dev)
 
-    # 16. Summary lines.
+    # 16. The remaining minimal solvers at localization scale.
+    min_k1, min_k2 = phase_minimal_solvers(dev)
+
+    # 17. Summary lines.
     d128 = next(d for d in rowmin["depths"] if d["D"] == 128)
     kernels = [
         dict(
@@ -1928,6 +2108,7 @@ def main() -> int:
             phase_13_launches=inc_k1,
             phase_14_launches=im14_k1,
             phase_15_launches=rest_k1,
+            phase_16_launches=min_k1,
             **k1,
         ),
         dict(
@@ -1951,6 +2132,7 @@ def main() -> int:
             phase_13_launches=inc_k2,
             phase_14_launches=im14_k2,
             phase_15_launches=rest_k2,
+            phase_16_launches=min_k2,
         ),
     ]
     log(json.dumps({"kernels": kernels}))

@@ -4,9 +4,11 @@ Counterpart of the JAX package's `ransac/estimators.py`. Ported: the two-view
 estimators (calibrated relative pose, essential and fundamental matrix,
 homography, the uncalibrated relative pose), the calibrated absolute pose
 (P3P, and SQPnP / DLS by `PnPType`), the known-orientation absolute and
-relative positions and RANSAC triangulation, each with its
-local-optimization refit where the JAX package has one. The others raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+relative positions, RANSAC triangulation, the uncalibrated absolute pose
+(P4Pf) and its radial-distortion variant (P4Pfr), the similarity and
+rigid 2D-3D transforms of a generalized camera (gDLS, UPnP), the dominant
+plane and the radial-distortion homography, each with its
+local-optimization refit where the JAX package has one: all 16.
 
 Conventions:
   - "normalized correspondences": calibrated image points (intrinsics
@@ -23,7 +25,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import epipolar, five_point, known_rotation as kr, p3p, pnp
+from ..ops import epipolar, five_point, focal_radial, generalized_pose, known_rotation as kr
+from ..ops import p3p, pnp, radial_homography
 from ..ops import rotation as rotops, triangulation as tri
 from . import engine
 
@@ -31,23 +34,37 @@ __all__ = [
     "ABSOLUTE_POSE_ESTIMATOR",
     "CalibratedAbsolutePose",
     "Corr2D3D",
+    "DOMINANT_PLANE_ESTIMATOR",
     "ESSENTIAL_ESTIMATOR",
     "EssentialMatrix",
     "FUNDAMENTAL_ESTIMATOR",
     "FundamentalMatrix",
+    "GeneralizedCorr2D3D",
     "HOMOGRAPHY_ESTIMATOR",
     "Homography",
     "KNOWN_ORIENTATION_ABSOLUTE_POSE_ESTIMATOR",
     "KNOWN_ORIENTATION_RELATIVE_POSE_ESTIMATOR",
+    "Plane",
+    "PlaneData",
     "Position",
+    "RADIAL_DISTORTION_HOMOGRAPHY_ESTIMATOR",
+    "RADIAL_DIST_UNCALIBRATED_ABSOLUTE_POSE_ESTIMATOR",
     "RELATIVE_POSE_ESTIMATOR",
+    "RIGID_2D_3D_ESTIMATOR",
+    "RadialDistUncalibratedAbsolutePose",
+    "RadialHomographyResult",
     "RelativePose",
+    "RigidTransformation",
+    "SIMILARITY_2D_3D_ESTIMATOR",
     "SQPNP_ABSOLUTE_POSE_ESTIMATOR",
+    "SimilarityTransformation",
     "TRIANGULATION_ESTIMATOR",
     "TriangulatedPoint",
     "TriangulationData",
     "TwoViewData",
+    "UNCALIBRATED_ABSOLUTE_POSE_ESTIMATOR",
     "UNCALIBRATED_RELATIVE_POSE_ESTIMATOR",
+    "UncalibratedAbsolutePose",
     "UncalibratedRelativePose",
     "estimate_absolute_pose_with_known_orientation",
     "estimate_calibrated_absolute_pose",
@@ -566,24 +583,363 @@ def estimate_calibrated_absolute_pose_typed(
     )
 
 
-def _not_ported(name: str, item: str):
-    def estimator(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP item {item})"
+def _in_chunks(solve, rows: int):
+    """`solve` over the samples [P, B] of a subset, `rows` samples at a time
+    (the solver sees one leading axis), so that the candidate grids of the
+    minimal solvers below stay within the card's memory at localization
+    scale. Returns the models [P, B, K, ...] and valid [P, B, K]."""
+
+    def chunked(subset):
+        P, B = subset[0].shape[:2]
+        flat = [a.reshape(P * B, *a.shape[2:]) for a in subset]
+        outs = [solve(type(subset)(*(a[i:i + rows] for a in flat)))
+                for i in range(0, P * B, rows)]
+        models = type(outs[0][0])(*(
+            torch.cat(parts).reshape(P, B, *parts[0].shape[1:])
+            for parts in zip(*(o[0] for o in outs))))
+        return models, torch.cat([o[1] for o in outs]).reshape(P, B, -1)
+
+    return chunked
+
+
+class UncalibratedAbsolutePose(NamedTuple):
+    """Parity: `theia::UncalibratedAbsolutePose`
+    (estimate_uncalibrated_absolute_pose.h:48-52)."""
+
+    rotation: torch.Tensor  # [.., 3, 3]
+    position: torch.Tensor  # [.., 3]
+    focal_length: torch.Tensor  # [..]
+
+
+class _ProjectionModel(NamedTuple):
+    """P4Pf's hypotheses: P = diag(f, f, 1) [R | t] and f."""
+
+    projection: torch.Tensor  # [.., 3, 4]
+    focal_length: torch.Tensor  # [..]
+
+
+def _p4pf_solver(subset: Corr2D3D):
+    P, f, valid = focal_radial.four_point_pose_and_focal_length(
+        subset.feature, subset.world_point)
+    return _ProjectionModel(P, f), valid
+
+
+def _projection_residuals(model: _ProjectionModel, data: Corr2D3D):
+    """Squared pixel reprojection through P, _BIG behind the camera
+    (estimate_uncalibrated_absolute_pose.cc): models [P, H, ...] against
+    data [P, N, ...] -> [P, H, N]."""
+    X = data.world_point[:, None]  # [P, 1, N, 3]
+    Pm = model.projection[..., None, :, :]  # [P, H, 1, 3, 4]
+    proj = [sum(X[..., j] * Pm[..., i, j] for j in range(3)) + Pm[..., i, 3] for i in range(3)]
+    z = proj[2]
+    behind = z < 1e-12
+    z_safe = torch.where(behind, torch.ones_like(z), z)
+    f = data.feature[:, None]
+    err = (proj[0] / z_safe - f[..., 0]) ** 2 + (proj[1] / z_safe - f[..., 1]) ** 2
+    return torch.where(behind, _BIG, err)
+
+
+# The focal solvers' grids (7 or 28 candidates a sample) in chunks of
+# 16,384 samples; the radial homography's 881 DLTs a sample in chunks of
+# 4,096; the generalized solvers' 16 seeds in chunks of 16,384.
+_FOCAL_CHUNK = 16384
+_HOMOGRAPHY_CHUNK = 4096
+_GENERALIZED_CHUNK = 16384
+
+UNCALIBRATED_ABSOLUTE_POSE_ESTIMATOR = engine.Estimator(
+    sample_size=4,
+    solve=_in_chunks(_p4pf_solver, _FOCAL_CHUNK),
+    residuals=_projection_residuals,
+)
+
+
+def estimate_uncalibrated_absolute_pose(
+    generator, feature, world_point, params: engine.RansacParameters, mask=None, **kw
+):
+    """Parity: `theia::EstimateUncalibratedAbsolutePose`
+    (estimate_uncalibrated_absolute_pose.cc:107), over P problems: P4Pf on
+    principal-point-centred pixel features [P, N, 2] and world points
+    [P, N, 3], squared pixel reprojection error through P = diag(f, f, 1)
+    [R | t]. Returns (UncalibratedAbsolutePose with leading axis [P],
+    RansacSummary)."""
+    model, summary = engine.ransac(
+        generator, Corr2D3D(feature, world_point), UNCALIBRATED_ABSOLUTE_POSE_ESTIMATOR,
+        params, mask=mask, **kw,
+    )
+    # Unpack P = diag(f, f, 1) [R | t] into the reference's model.
+    f = model.focal_length
+    scale = torch.stack([1.0 / f, 1.0 / f, torch.ones_like(f)], dim=-1)
+    Rt = scale[..., None] * model.projection
+    R, t = Rt[..., :3], Rt[..., 3]
+    return UncalibratedAbsolutePose(R, -(R.mT @ t[..., None])[..., 0], f), summary
+
+
+class RadialDistUncalibratedAbsolutePose(NamedTuple):
+    """Parity: `theia::RadialDistUncalibratedAbsolutePose`
+    (estimate_radial_dist_uncalibrated_absolute_pose.h:50-55)."""
+
+    rotation: torch.Tensor  # [.., 3, 3]
+    translation: torch.Tensor  # [.., 3]
+    focal_length: torch.Tensor  # [..]
+    radial_distortion: torch.Tensor  # [..], normalized units
+
+
+def _radial_dist_residuals(model: RadialDistUncalibratedAbsolutePose, data: Corr2D3D):
+    """Squared pixel error after projecting and distorting by the division
+    model (`radial_homography.radial_distort_point`): [P, H, N]."""
+    X = data.world_point[:, None]  # [P, 1, N, 3]
+    Rr = model.rotation[..., None, :, :]
+    p_cam = torch.stack([sum(X[..., j] * Rr[..., i, j] for j in range(3))
+                         for i in range(3)], dim=-1) + model.translation[..., None, :]
+    distorted = radial_homography.radial_distort_point(
+        p_cam, model.focal_length[..., None], model.radial_distortion[..., None])
+    err = torch.sum((distorted - data.feature[:, None]) ** 2, dim=-1)
+    return torch.where(p_cam[..., 2] < 1e-12, _BIG, err)
+
+
+def _radial_dist_estimator(
+    min_focal_length: float = 200.0, max_focal_length: float = 10000.0,
+    min_radial_distortion: float = -1e-5,
+):
+    """The P4Pfr estimator with the JAX package's bounds: the focal bounds
+    as given, k1 (normalized units) in [min_radial_distortion *
+    max_focal_length^2, 0]."""
+
+    def solve(subset: Corr2D3D):
+        R, t, k1, f, valid = focal_radial.four_point_pose_focal_length_radial_distortion(
+            subset.feature, subset.world_point,
+            min_focal_length=min_focal_length, max_focal_length=max_focal_length,
+            min_distortion=min_radial_distortion * max_focal_length**2,
+            max_distortion=0.0,
         )
+        return RadialDistUncalibratedAbsolutePose(R, t, f, k1), valid
 
-    estimator.__name__ = name
-    estimator.__doc__ = f"Not ported yet: raises NotImplementedError (ROADMAP item {item})."
-    return estimator
+    return engine.Estimator(sample_size=4, solve=_in_chunks(solve, _FOCAL_CHUNK),
+                            residuals=_radial_dist_residuals)
 
 
-# The remaining minimal solvers' estimators (E1).
-estimate_uncalibrated_absolute_pose = _not_ported("estimate_uncalibrated_absolute_pose", "E1")
-estimate_radial_dist_uncalibrated_absolute_pose = _not_ported(
-    "estimate_radial_dist_uncalibrated_absolute_pose", "E1")
-estimate_similarity_transformation_2d_3d = _not_ported(
-    "estimate_similarity_transformation_2d_3d", "E1")
-estimate_rigid_transformation_2d_3d = _not_ported("estimate_rigid_transformation_2d_3d", "E1")
-estimate_dominant_plane_from_points = _not_ported("estimate_dominant_plane_from_points", "E1")
-estimate_radial_distortion_homography = _not_ported(
-    "estimate_radial_distortion_homography", "E1")
+# P4Pfr at `estimate_radial_dist_uncalibrated_absolute_pose`'s default bounds.
+RADIAL_DIST_UNCALIBRATED_ABSOLUTE_POSE_ESTIMATOR = _radial_dist_estimator()
+
+
+def estimate_radial_dist_uncalibrated_absolute_pose(
+    generator, feature, world_point, params: engine.RansacParameters,
+    min_focal_length: float = 200.0, max_focal_length: float = 10000.0,
+    min_radial_distortion: float = -1e-5, max_radial_distortion: float = -1e-9,
+    mask=None, **kw,
+):
+    """Parity: `theia::EstimateRadialDistUncalibratedAbsolutePose`
+    (estimate_radial_dist_uncalibrated_absolute_pose.cc and its MetaData
+    bounds), over P problems: P4Pfr with the JAX package's bounds
+    (`max_radial_distortion` is not read, as there), the squared
+    distorted-pixel residual. feature [P, N, 2] pp-centred pixels. Returns
+    (RadialDistUncalibratedAbsolutePose with leading axis [P],
+    RansacSummary)."""
+    est = _radial_dist_estimator(min_focal_length, max_focal_length, min_radial_distortion)
+    return engine.ransac(generator, Corr2D3D(feature, world_point), est, params, mask=mask,
+                         **kw)
+
+
+class GeneralizedCorr2D3D(NamedTuple):
+    """Parity: `theia::CameraAndFeatureCorrespondence2D3D` in its ray form
+    (the ray's origin and direction are what both solvers and the error
+    read)."""
+
+    ray_origin: torch.Tensor  # [P, N, 3] camera centres
+    ray_direction: torch.Tensor  # [P, N, 3] unit rays in the rig frame
+    world_point: torch.Tensor  # [P, N, 3]
+
+
+class SimilarityTransformation(NamedTuple):
+    """Parity: `theia::SimilarityTransformation` (sim_transforms.h)."""
+
+    rotation: torch.Tensor  # [.., 3, 3]
+    translation: torch.Tensor  # [.., 3]
+    scale: torch.Tensor  # [..]
+
+
+class RigidTransformation(NamedTuple):
+    """Parity: `theia::RigidTransformation`."""
+
+    rotation: torch.Tensor  # [.., 3, 3]
+    translation: torch.Tensor  # [.., 3]
+
+
+def _ray_alignment_residuals(transformed, data: GeneralizedCorr2D3D):
+    """Squared sine of the angle between each ray and the direction to its
+    transformed point (the angular form of the reference's squared
+    reprojection error, estimate_similarity_transformation_2d_3d.cc:
+    137-152): transformed [P, H, N, 3] -> [P, H, N]."""
+    v = transformed - data.ray_origin[:, None]
+    n2 = torch.sum(v * v, dim=-1)
+    dot = torch.sum(v * data.ray_direction[:, None], dim=-1)
+    tiny = n2 < 1e-18
+    sin2 = 1.0 - (dot * dot) / torch.where(tiny, torch.ones_like(n2), n2)
+    return torch.where((dot <= 0) | tiny, _BIG, torch.clamp(sin2, min=0.0))
+
+
+def _transform_points(rotation, translation, X, scale=None):
+    """s R X + t of models [P, H, ...] at points X [P, N, 3] -> [P, H, N, 3]."""
+    Xb = X[:, None]
+    Rr = rotation[..., None, :, :]
+    RX = torch.stack([sum(Xb[..., j] * Rr[..., i, j] for j in range(3)) for i in range(3)],
+                     dim=-1)
+    if scale is not None:
+        RX = scale[..., None, None] * RX
+    return RX + translation[..., None, :]
+
+
+def _gdls_solver(subset: GeneralizedCorr2D3D):
+    R, t, s, cost = generalized_pose.gdls_similarity_transform(
+        subset.ray_origin, subset.ray_direction, subset.world_point)
+    return (SimilarityTransformation(R[..., None, :, :], t[..., None, :], s[..., None]),
+            torch.isfinite(cost)[..., None])
+
+
+def _upnp_solver(subset: GeneralizedCorr2D3D):
+    R, t, cost = generalized_pose.upnp(
+        subset.ray_origin, subset.ray_direction, subset.world_point)
+    return RigidTransformation(R[..., None, :, :], t[..., None, :]), torch.isfinite(cost)[..., None]
+
+
+SIMILARITY_2D_3D_ESTIMATOR = engine.Estimator(
+    sample_size=4,
+    solve=_in_chunks(_gdls_solver, _GENERALIZED_CHUNK),
+    residuals=lambda m, d: _ray_alignment_residuals(
+        _transform_points(m.rotation, m.translation, d.world_point, m.scale), d),
+)
+
+RIGID_2D_3D_ESTIMATOR = engine.Estimator(
+    sample_size=4,
+    solve=_in_chunks(_upnp_solver, _GENERALIZED_CHUNK),
+    residuals=lambda m, d: _ray_alignment_residuals(
+        _transform_points(m.rotation, m.translation, d.world_point), d),
+)
+
+
+def estimate_similarity_transformation_2d_3d(
+    generator, ray_origin, ray_direction, world_point, params: engine.RansacParameters,
+    mask=None, **kw,
+):
+    """Parity: `theia::EstimateSimilarityTransformation2D3D`
+    (estimate_similarity_transformation_2d_3d.h), over P problems: gDLS
+    from 4 ray / 3D-point correspondences of a generalized camera
+    (ray_origin, ray_direction, world_point [P, N, 3]), the angular
+    residual. Returns (SimilarityTransformation with leading axis [P],
+    RansacSummary)."""
+    return engine.ransac(
+        generator, GeneralizedCorr2D3D(ray_origin, ray_direction, world_point),
+        SIMILARITY_2D_3D_ESTIMATOR, params, mask=mask, **kw,
+    )
+
+
+def estimate_rigid_transformation_2d_3d(
+    generator, ray_origin, ray_direction, world_point, params: engine.RansacParameters,
+    mask=None, **kw,
+):
+    """Parity: `theia::EstimateRigidTransformation2D3D`
+    (estimate_rigid_transformation_2d_3d.cc:58-135), over P problems: UPnP
+    on 4 rays of a generalized camera, the angular residual. Returns
+    (RigidTransformation with leading axis [P], RansacSummary)."""
+    return engine.ransac(
+        generator, GeneralizedCorr2D3D(ray_origin, ray_direction, world_point),
+        RIGID_2D_3D_ESTIMATOR, params, mask=mask, **kw,
+    )
+
+
+class Plane(NamedTuple):
+    """Parity: `theia::Plane` (estimate_dominant_plane_from_points.h:48-51)."""
+
+    point: torch.Tensor  # [.., 3]
+    unit_normal: torch.Tensor  # [.., 3]
+
+
+class PlaneData(NamedTuple):
+    """The dominant plane's data (the JAX package passes the bare array)."""
+
+    points: torch.Tensor  # [P, N, 3]
+
+
+def _plane_solver(subset: PlaneData):
+    p0, p1, p2 = subset.points[..., 0, :], subset.points[..., 1, :], subset.points[..., 2, :]
+    n = torch.linalg.cross(p1 - p0, p2 - p0, dim=-1)
+    norm = torch.linalg.norm(n, dim=-1)
+    ok = norm > 1e-12
+    n = n / torch.where(ok, norm, torch.ones_like(norm))[..., None]
+    return Plane(p0[..., None, :], n[..., None, :]), ok[..., None]
+
+
+def _plane_residuals(model: Plane, data: PlaneData):
+    """Squared point-to-plane distance: [P, H, N]."""
+    d = data.points[:, None] - model.point[..., None, :]
+    dist = torch.sum(d * model.unit_normal[..., None, :], dim=-1)
+    return dist * dist
+
+
+DOMINANT_PLANE_ESTIMATOR = engine.Estimator(
+    sample_size=3, solve=_plane_solver, residuals=_plane_residuals)
+
+
+def estimate_dominant_plane_from_points(
+    generator, points, params: engine.RansacParameters, mask=None, **kw
+):
+    """Parity: `theia::EstimateDominantPlaneFromPoints`
+    (estimate_dominant_plane_from_points.cc), over P problems: 3-point
+    planes, the SQUARED point-to-plane distance (the reference scores the
+    distance; square `error_thresh` accordingly). points [P, N, 3]. Returns
+    (Plane with leading axis [P], RansacSummary)."""
+    return engine.ransac(generator, PlaneData(points), DOMINANT_PLANE_ESTIMATOR, params,
+                         mask=mask, **kw)
+
+
+class RadialHomographyResult(NamedTuple):
+    """Parity: `theia::RadialHomographyResult`
+    (estimate_radial_distortion_homography.h)."""
+
+    H: torch.Tensor  # [.., 3, 3]
+    l1: torch.Tensor  # [..] radial distortion, left
+    l2: torch.Tensor  # [..] radial distortion, right
+
+
+def _radial_homography_residuals(model: RadialHomographyResult, data: TwoViewData):
+    """`CheckRadialSymmetricError` of models [P, H, ...] against data
+    [P, N, 2] -> [P, H, N]."""
+    return radial_homography.check_radial_symmetric_error(
+        model.H[..., None, :, :], model.l1[..., None], model.l2[..., None],
+        data.points1[:, None], data.points2[:, None])
+
+
+def _radial_homography_estimator(min_radial_distortion: float = -5.0,
+                                 max_radial_distortion: float = 0.0):
+    """The 6-point radial-distortion homography estimator, l1 and l2 searched
+    in [min_radial_distortion, max_radial_distortion]."""
+
+    def solve(subset: TwoViewData):
+        H, l1, l2, valid = radial_homography.six_point_radial_distortion_homography(
+            subset.points1, subset.points2, lmin=min_radial_distortion,
+            lmax=max_radial_distortion)
+        return RadialHomographyResult(H, l1, l2), valid
+
+    return engine.Estimator(sample_size=6, solve=_in_chunks(solve, _HOMOGRAPHY_CHUNK),
+                            residuals=_radial_homography_residuals)
+
+
+# The radial homography at `estimate_radial_distortion_homography`'s default
+# search range.
+RADIAL_DISTORTION_HOMOGRAPHY_ESTIMATOR = _radial_homography_estimator()
+
+
+def estimate_radial_distortion_homography(
+    generator, normalized_points1, normalized_points2, params: engine.RansacParameters,
+    min_radial_distortion: float = -5.0, max_radial_distortion: float = 0.0,
+    mask=None, **kw,
+):
+    """Parity: `theia::EstimateRadialHomographyMatrix`
+    (estimate_radial_distortion_homography.cc), over P problems: the
+    6-point radial-distortion homography on focal-normalized distorted
+    points [P, N, 2], the symmetric transfer residual under the lifted
+    model. Returns (RadialHomographyResult with leading axis [P],
+    RansacSummary)."""
+    est = _radial_homography_estimator(min_radial_distortion, max_radial_distortion)
+    return engine.ransac(generator, TwoViewData(normalized_points1, normalized_points2), est,
+                         params, mask=mask, **kw)

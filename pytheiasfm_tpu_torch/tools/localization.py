@@ -57,8 +57,9 @@ def build_problems(V: int = 553, T: int = 50_000, seed: int = 0,
                    outlier_share: float = OUTLIER_SHARE):
     """Returns a dict of host arrays: `feature` [P, N, 2] normalized,
     `world` [P, N, 3], `mask` [P, N] (each view's rows first, padded to the
-    largest view), `thresh` [P] squared normalized thresholds, and the
-    ground truth `rotation` [P, 3, 3] (world->camera) and `position` [P, 3]."""
+    largest view), `thresh` [P] squared normalized thresholds, the ground
+    truth `rotation` [P, 3, 3] (world->camera) and `position` [P, 3], and
+    the views' `focal_length` in pixels."""
     recon, _, positions = synthetic_global.build_scene(V=V, T=T, seed=seed)
     points = _scene_points(V, T, seed)
     z = -positions / np.linalg.norm(positions, axis=1, keepdims=True)
@@ -94,7 +95,7 @@ def build_problems(V: int = 553, T: int = 50_000, seed: int = 0,
         world[v, bad] = rng.uniform(-3, 3, size=(len(bad), 3))
     return dict(feature=feature, world=world, mask=mask,
                 thresh=np.full(V, (thresh_px / f) ** 2), rotation=rotation,
-                position=positions)
+                position=positions, focal_length=f)
 
 
 def parameters(name: str):

@@ -24,7 +24,9 @@ views on the card as on the CPU. The dense-Schur and flat kernels (with and
 without view priors) and the covariance entries, card against CPU: f64 the
 same LM iterations, the final cost and the covariance blocks to 1e-8
 relative; f32 the final cost to 1e-4 relative. The f64 bars for BA over a
-rig of all eight camera models in one problem (`tools.camera_rig`).
+rig of all eight camera models in one problem (`tools.camera_rig`). The six
+estimators of the remaining minimal solvers, scored on the same samples,
+card against CPU (f64): inliers on 99.5% of rows, models to 1e-6.
 """
 
 import copy
@@ -555,3 +557,46 @@ def test_mixed_rig_bundle_adjustment_on_the_card_matches_the_cpu(cuda):
     errs = [reu.compute_reprojection_errors(states[1], device=device)[0]
             for device in (cuda, "cpu")]
     np.testing.assert_allclose(errs[0], errs[1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["p4pf", "p4pfr", "similarity", "rigid", "plane",
+                                  "radial_homography"])
+def test_minimal_solver_estimators_on_the_card_match_the_cpu(cuda, name):
+    """Each estimator of the remaining minimal solvers (`tools.minimal_solvers`'
+    problems at 16 views, f64) scored on the same 64 samples a problem
+    (`engine.score_samples`, indices drawn once on the CPU), card against
+    CPU: every problem's best inlier count equal, the inlier masks on 99.5%
+    of rows, and the best models to 1e-6 relative on 14 of the 16 problems
+    (the homography up to its sign). Where several hypotheses tie on the
+    best count, which comes first can be the rounding's: the focal solvers
+    keep 4 of up to 28 candidates a sample, and where more converge, which
+    fill the slots is the rounding's."""
+    from pytheiasfm_tpu_torch.ransac import engine
+    from pytheiasfm_tpu_torch.tools import minimal_solvers
+
+    prob = minimal_solvers.build_problems(V=16, T=2000)[name]
+    params = engine.RansacParameters(max_iterations=64, min_iterations=64)
+    runs, idx = [], None
+    for device in ("cpu", cuda):
+        est, data, mask, thresh = minimal_solvers.estimator_and_data(
+            name, prob, device, torch.float64)
+        if idx is None:
+            idx = engine._draw_samples(torch.Generator().manual_seed(0), mask, 64,
+                                       est.sample_size)
+        runs.append(engine.score_samples(idx.to(device), data, est, params, mask=mask,
+                                         error_thresh=thresh))
+    (cpu_model, cpu_sum), (card_model, card_sum) = runs
+    assert torch.equal(card_sum.num_inliers.cpu(), cpu_sum.num_inliers), (
+        card_sum.num_inliers, cpu_sum.num_inliers)
+    agree = (card_sum.inliers.cpu() == cpu_sum.inliers).float().mean()
+    assert agree >= 0.995, agree
+    assert int(cpu_sum.num_inliers.sum()) > 0
+    P = cpu_sum.num_inliers.shape[0]
+    same = np.ones(P, bool)
+    for a, b in zip(card_model, cpu_model):
+        a, b = a.cpu().numpy().reshape(P, -1), b.numpy().reshape(P, -1)
+        if name == "radial_homography" and a.shape[1] == 9:
+            # H is an eigenvector's: its sign is the eigen-solver's.
+            a = a * np.sign(np.sum(a * b, axis=1))[:, None]
+        same &= np.all(np.abs(a - b) <= 1e-6 * np.maximum(1.0, np.abs(b)), axis=1)
+    assert same.sum() >= P - 2, same

@@ -37,6 +37,7 @@ from pytheiasfm_tpu_torch.global_pose import position_estimator as tpos
 from pytheiasfm_tpu_torch.global_pose import rotation_estimator as trot
 from pytheiasfm_tpu_torch.sfm.global_estimator import GlobalReconstructionEstimator
 from pytheiasfm_tpu_torch.tools import global_pose as gp
+from pytheiasfm_tpu_torch.tools import minimal_solvers
 from test_torch_track_estimator import one_cpu_thread  # noqa: F401  (autouse)
 
 
@@ -119,6 +120,7 @@ def test_entry_points_run_on_the_card_unless_asked():
         lambda: tfilters.filter_view_graph_cycles_by_rotation(copy.deepcopy(g)),
         lambda: tfilters.extract_maximally_parallel_rigid_subgraph(
             {v: np.zeros(3) for v in g.view_ids()}, copy.deepcopy(g)),
+        lambda: minimal_solvers.main(["--only", "plane"]),
     ]
     if torch.cuda.is_available():
         assert GlobalReconstructionEstimator().device.type == "cuda"

@@ -26,12 +26,14 @@ print(" ".join(names))
 """
 
 # Modules added with the uncalibrated path and the RANSAC variants, with
-# localization and the incremental and hybrid estimators, and with the rest
-# of global pose.
+# localization and the incremental and hybrid estimators, with the rest of
+# global pose, and with the remaining minimal solvers.
 _NEW_MODULES = ("math.sprt", "ops.p3p", "ops.pnp", "tools.localization", "ops.known_rotation",
                 "sfm.localize", "sfm.incremental_estimator", "sfm.hybrid_estimator",
                 "tools.incremental_sfm", "math.sdp", "math.qp",
-                "global_pose.triplet_baseline")
+                "global_pose.triplet_baseline", "ops.focal_radial", "ops.radial_homography",
+                "ops.generalized_pose", "ops.orthographic", "ops.partial_rotation", "ops.lie",
+                "tools.minimal_solvers")
 
 
 def test_every_port_module_imports_without_jax():

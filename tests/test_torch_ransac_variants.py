@@ -374,6 +374,37 @@ def test_other_estimators_with_own_generator(rng):
     assert inl[:5].all() and inl[7] and not inl[5] and not inl[6]
 
 
+def _clean_problem(name):
+    """A small outlier-free problem for estimator `name` (the scenes of
+    `test_torch_robust_estimators_extra`): (args, error_thresh, check of
+    the model against the ground truth)."""
+    import test_torch_robust_estimators_extra as E
+
+    rng = np.random.default_rng(7)
+    if name in ("estimate_uncalibrated_absolute_pose",
+                "estimate_radial_dist_uncalibrated_absolute_pose"):
+        uv, X, R, c = E._pose_scene(rng, N=24, n_out=0, focal=1000.0)
+        if "radial" in name:
+            # The division model exactly, k1 = -0.02 in normalized units.
+            ru = np.linalg.norm(uv / 1000.0, axis=-1, keepdims=True)
+            uv = uv * (1 - np.sqrt(1 + 4 * 0.02 * ru**2)) / (-2 * 0.02 * ru**2)
+        return ((_t(uv)[None], _t(X)[None]), 2.0**2,
+                lambda m: abs(float(m.focal_length[0]) - 1000.0) < 20.0)
+    if name.endswith("transformation_2d_3d"):
+        scale = 1.7 if "similarity" in name else None
+        o, d, X, R, t, _ = E.rig_scene(rng, N=16, n_out=0, scale=scale)
+        return ((_t(o)[None], _t(d)[None], _t(X)[None]), np.sin(np.radians(0.1)) ** 2,
+                lambda m: np.linalg.norm(m.rotation[0].numpy() - R) < 1e-4
+                and np.linalg.norm(m.translation[0].numpy() - t) < 1e-4)
+    if name == "estimate_dominant_plane_from_points":
+        pts, n = E.plane_scene(rng, N=40, n_out=0)
+        return ((_t(pts)[None],), 0.05**2,
+                lambda m: abs(float(m.unit_normal[0].numpy() @ n)) > 0.999)
+    x1, x2 = E.radial_homography_scene(rng, N=16, n_out=0)
+    return ((_t(x1)[None], _t(x2)[None]), 1e-6,
+            lambda m: abs(float(m.l1[0]) + 0.2) < 0.05 and abs(float(m.l2[0]) + 0.4) < 0.05)
+
+
 @pytest.mark.parametrize("name,item", [
     ("estimate_uncalibrated_absolute_pose", "E1"),
     ("estimate_radial_dist_uncalibrated_absolute_pose", "E1"),
@@ -383,5 +414,11 @@ def test_other_estimators_with_own_generator(rng):
     ("estimate_radial_distortion_homography", "E1"),
 ])
 def test_unported_estimators_name_their_item(name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        getattr(test_, name)(None)
+    """The six estimators of ROADMAP item E1, once stubs, recover the ground
+    truth of a small clean problem, every row an inlier."""
+    args, thresh, recovered = _clean_problem(name)
+    model, summary = getattr(test_, name)(
+        _gen(0), *args, teng.RansacParameters(error_thresh=thresh, max_iterations=16,
+                                              min_iterations=16))
+    assert int(summary.num_inliers[0]) == args[0].shape[1]
+    assert recovered(model), (name, item)
