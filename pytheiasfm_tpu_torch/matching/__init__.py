@@ -24,3 +24,4 @@ from .database import (  # noqa: F401
     FeaturesAndMatchesDatabase,
     InMemoryFeaturesAndMatchesDatabase,
 )
+from .fisher_vector import FisherVectorExtractor  # noqa: F401

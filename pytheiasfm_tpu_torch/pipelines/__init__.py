@@ -1,2 +1,3 @@
 """End-to-end pipelines: the synthetic global-SfM scene
-(`synthetic_global.py`) and images to reconstruction (`images.py`)."""
+(`synthetic_global.py`), images to reconstruction (`images.py`) and feature
+tracks from a file to a reconstruction and its ATE (`fountain.py`)."""

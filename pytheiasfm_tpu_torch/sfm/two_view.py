@@ -32,9 +32,15 @@ __all__ = [
     "compute_resolution_scaled_threshold",
 ]
 
-# Pairs verified per RANSAC program: bounds the [pairs, hypotheses, 10, ...]
-# minimal-solver temporaries (about 3 MB per pair at 1000 hypotheses).
+# Pairs verified per RANSAC program at up to 1000 hypotheses: bounds the
+# [pairs, hypotheses, 10, ...] minimal-solver temporaries (about 3 MB per
+# pair at 1000 hypotheses). Below 1000 hypotheses a program takes
+# proportionally more pairs (`_pairs_per_chunk`), the same bound.
 _PAIRS_PER_CHUNK = 64
+
+
+def _pairs_per_chunk(max_iterations: int) -> int:
+    return max(_PAIRS_PER_CHUNK, _PAIRS_PER_CHUNK * 1000 // max(max_iterations, 1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +156,7 @@ def _visibility(info, idx, points1, points2, prior1, prior2):
 def _verify(calibrated: bool, params, generator, options, priors1, priors2, points1, points2,
             masks, min_num_inlier_matches, device):
     """Stage 1 over a block of pairs of one kind, in f32 and chunks of pairs
-    (`_PAIRS_PER_CHUNK`): the five-point relative pose for calibrated pairs,
+    (`_pairs_per_chunk`): the five-point relative pose for calibrated pairs,
     the uncalibrated relative pose (each pair over its true count) for the
     others. Returns a list of (TwoViewInfo | None, inlier_indices)."""
     n1, n2 = _normalized(priors1, priors2, points1, points2, calibrated)
@@ -162,8 +168,9 @@ def _verify(calibrated: bool, params, generator, options, priors1, priors2, poin
         estimate, num_data = estimators.estimate_uncalibrated_relative_pose, masks.sum(-1)
     f32 = torch.float32
     parts = {"aa": [], "position": [], "inliers": [], "num": [], "f1": [], "f2": []}
-    for s0 in range(0, len(n1), _PAIRS_PER_CHUNK):
-        sl = slice(s0, min(s0 + _PAIRS_PER_CHUNK, len(n1)))
+    chunk = _pairs_per_chunk(params.max_iterations)
+    for s0 in range(0, len(n1), chunk):
+        sl = slice(s0, min(s0 + chunk, len(n1)))
         model, summary = estimate(
             generator,
             torch.as_tensor(n1[sl], dtype=f32, device=device),

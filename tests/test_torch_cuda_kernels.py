@@ -26,7 +26,10 @@ same LM iterations, the final cost and the covariance blocks to 1e-8
 relative; f32 the final cost to 1e-4 relative. The f64 bars for BA over a
 rig of all eight camera models in one problem (`tools.camera_rig`). The six
 estimators of the remaining minimal solvers, scored on the same samples,
-card against CPU (f64): inliers on 99.5% of rows, models to 1e-6.
+card against CPU (f64): inliers on 99.5% of rows, models to 1e-6. The
+Sim(3) pose graph (f64) and MVS view selection (f32 angles, f64 sums),
+card against CPU: nodes and cost to 1e-8 relative; the same neighbour
+lists, scores to 1e-4 relative.
 """
 
 import copy
@@ -600,3 +603,37 @@ def test_minimal_solver_estimators_on_the_card_match_the_cpu(cuda, name):
             a = a * np.sign(np.sum(a * b, axis=1))[:, None]
         same &= np.all(np.abs(a - b) <= 1e-6 * np.maximum(1.0, np.abs(b)), axis=1)
     assert same.sum() >= P - 2, same
+
+
+def test_sim3_pose_graph_on_the_card_matches_the_cpu(cuda):
+    """`optimize_sim3_pose_graph` on `tools.file_scene`'s pose graph at 64
+    views (about 1,300 self edges, node 0 fixed), 20 Gauss-Newton steps in
+    f64, card against CPU: nodes and the final cost to 1e-8 relative."""
+    from pytheiasfm_tpu_torch.tools import file_scene
+    from pytheiasfm_tpu_torch.transforms import optimize_sim3_pose_graph
+
+    _, gt, graph = file_scene.scene(V=64, T=6000)
+    init, self_edges, cross_edges, fixed, gt_nodes = file_scene.pose_graph_problem(gt, graph)
+    runs = [optimize_sim3_pose_graph(init, self_edges, cross_edges, fixed, 20, device=d)
+            for d in ("cpu", cuda)]
+    (cpu_nodes, cpu_cost), (nodes, cost) = runs
+    assert np.max(np.abs(nodes - cpu_nodes)) <= 1e-8 * np.max(np.abs(cpu_nodes))
+    assert abs(cost - cpu_cost) <= 1e-8 * cpu_cost
+    assert np.median(file_scene.node_errors(nodes, gt_nodes)) < 0.25 * np.median(
+        file_scene.node_errors(init, gt_nodes))
+
+
+def test_view_selection_on_the_card_matches_the_cpu(cuda):
+    """`view_selection_mvsnet(recon, 10)` on `tools.file_scene`'s ground
+    truth at 64 views and 6,000 tracks, card against CPU: the same
+    neighbour lists, scores to 1e-4 relative."""
+    from pytheiasfm_tpu_torch.mvs import view_selection_mvsnet
+    from pytheiasfm_tpu_torch.tools import file_scene
+
+    _, gt, _ = file_scene.scene(V=64, T=6000)
+    cpu = view_selection_mvsnet(gt, 10, device="cpu")
+    card = view_selection_mvsnet(gt, 10, device=cuda)
+    assert card.keys() == cpu.keys()
+    for v, want in cpu.items():
+        assert [n for _, n in card[v]] == [n for _, n in want], v
+        assert all(abs(a - b) <= 1e-4 * b for (a, _), (b, _) in zip(card[v], want))

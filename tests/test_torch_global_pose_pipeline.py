@@ -35,6 +35,8 @@ from pytheiasfm_tpu_torch import convert
 from pytheiasfm_tpu_torch.global_pose import filters as tfilters
 from pytheiasfm_tpu_torch.global_pose import position_estimator as tpos
 from pytheiasfm_tpu_torch.global_pose import rotation_estimator as trot
+from pytheiasfm_tpu_torch.mvs import view_selection_mvsnet
+from pytheiasfm_tpu_torch.pipelines import fountain
 from pytheiasfm_tpu_torch.sfm.global_estimator import GlobalReconstructionEstimator
 from pytheiasfm_tpu_torch.tools import global_pose as gp
 from pytheiasfm_tpu_torch.tools import minimal_solvers
@@ -121,6 +123,8 @@ def test_entry_points_run_on_the_card_unless_asked():
         lambda: tfilters.extract_maximally_parallel_rigid_subgraph(
             {v: np.zeros(3) for v in g.view_ids()}, copy.deepcopy(g)),
         lambda: minimal_solvers.main(["--only", "plane"]),
+        lambda: fountain.evaluate(fountain_path="absent.recon", gt_path="absent.recon"),
+        lambda: view_selection_mvsnet(convert.reconstruction(recon), 3),
     ]
     if torch.cuda.is_available():
         assert GlobalReconstructionEstimator().device.type == "cuda"

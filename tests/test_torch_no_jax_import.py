@@ -27,13 +27,18 @@ print(" ".join(names))
 
 # Modules added with the uncalibrated path and the RANSAC variants, with
 # localization and the incremental and hybrid estimators, with the rest of
-# global pose, and with the remaining minimal solvers.
+# global pose, with the remaining minimal solvers, and with the I/O, the
+# fountain pipeline and the Sim(3) and MVS auxiliaries.
 _NEW_MODULES = ("math.sprt", "ops.p3p", "ops.pnp", "tools.localization", "ops.known_rotation",
                 "sfm.localize", "sfm.incremental_estimator", "sfm.hybrid_estimator",
                 "tools.incremental_sfm", "math.sdp", "math.qp",
                 "global_pose.triplet_baseline", "ops.focal_radial", "ops.radial_homography",
                 "ops.generalized_pose", "ops.orthographic", "ops.partial_rotation", "ops.lie",
-                "tools.minimal_solvers")
+                "tools.minimal_solvers", "io", "io.recon", "io.theia_recon", "io.ply",
+                "io.colmap", "io.bundler", "io.nvm", "io.nerfstudio", "io.calibration",
+                "io.strecha", "io.onedsfm", "pipelines.fountain", "transforms.pose_graph_sim3",
+                "mvs", "mvs.view_selection", "sfm.colorize_reconstruction",
+                "matching.fisher_vector", "tools.file_scene")
 
 
 def test_every_port_module_imports_without_jax():
