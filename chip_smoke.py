@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: matching, global SfM, images, camera models,
 uncalibrated verification, absolute pose, incremental and hybrid SfM, every global-pose
-estimator, the remaining minimal solvers, files to reconstruction and the
-Sim(3) and MVS auxiliaries.
+estimator, the remaining minimal solvers, files to reconstruction, the
+Sim(3) and MVS auxiliaries, and a device mesh of two ranks.
 
     python3 chip_smoke.py
 
@@ -173,7 +173,22 @@ Phases, each printed (flushed) as it ends:
      SDFStudio and calibration (npz, Bundler, NVM and calibration read back
      and held), and phase 7's reconstruction coloured from its images on
      the card and on the CPU; each step's seconds printed;
- 18. print a {"kernels": [...]} line, the card's name and power limit, and
+ 18. the device mesh (`tools.mesh_sfm`): two ranks on the card in one
+     process group (`torch.multiprocessing`, spawn; gloo carries the CUDA
+     tensors through the host, NCCL refusing two ranks on one device), on
+     a 1-D mesh: (a) `estimate` at the reference defaults (rotations, LUD,
+     triangulation and the iterative Schur sharded; collectives counted
+     and timed) and (b) calibrated (the dense Schur's sharded off-diagonal
+     product), each held to phase 5's or 6's run on one device (views,
+     estimated tracks, the rotations and positions of steps 3-7, the final
+     median error) and the two ranks' reconstructions to each other bit
+     for bit; (c) `sharded_segment_sum` and `distributed_normal_equation_blocks`
+     on phase 8's 564,673 observations against `segment_sum`; (d) the ring
+     scene's 496 pairs split over the ranks, one K1 launch a rank, gathered
+     and held to one launch on all pairs; then a 1-rank NCCL group's
+     triangulation and dense Schur; each step's seconds and each rank's
+     peak device memory printed;
+ 19. print a {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 It imports nothing of JAX. Without a CUDA card, or outside the repository,
@@ -1368,6 +1383,18 @@ def phase_global_sfm():
         f"{k2.matmul_rowmin.launches} (no hand-written kernel runs here)")
     if failures:
         raise RuntimeError("global SfM checks failed: " + "; ".join(failures))
+    return _single_device_reference(runs[1])
+
+
+def _single_device_reference(res):
+    """What phase 18 holds a run on the mesh to: a run's orientations and
+    positions of steps 3-7, its estimated tracks and its median error."""
+    orientations, positions = res["poses"]
+    ids = sorted(positions)
+    return dict(pose_ids=np.asarray(ids), orientations=np.stack([orientations[v] for v in ids]),
+                positions=np.stack([positions[v] for v in ids]),
+                tracks=np.nonzero(res["reconstruction"].track_estimated)[0],
+                median_pos_err=res["median_pos_err"])
 
 
 def phase_calibrated_sfm():
@@ -1401,6 +1428,7 @@ def phase_calibrated_sfm():
                               runs[0]["median_pos_err"])
     log(f"[cal] K1 launches on this path {sm.streaming_top2.launches}, K2 launches "
         f"{k2.matmul_rowmin.launches} (no hand-written kernel runs here)")
+    reference = _single_device_reference(runs[1])
     recon = runs[1]["reconstruction"]
     del runs
 
@@ -1432,6 +1460,7 @@ def phase_calibrated_sfm():
         failures.append("covariance: missing, non-finite or not positive-definite blocks")
     if failures:
         raise RuntimeError("calibrated global SfM checks failed: " + "; ".join(failures))
+    return reference
 
 
 def _sift_keyed(out):
@@ -2359,11 +2388,132 @@ def phase_files(images, image_model):
     return sm.streaming_top2.launches, k2.matmul_rowmin.launches
 
 
+# The device mesh (phase 18): two ranks on the one card, gloo carrying the
+# CUDA tensors through the host (`tools.mesh_sfm`). Held to the runs on one
+# device of phases 5 and 6 (the same views and estimated tracks; rotations
+# of steps 3-4 within MESH_ROTATION_TOL_RAD; positions of step 7 within
+# MESH_POSITION_TOL_REL of their median distance from their centroid, LUD at
+# 553 views being chaotic in rounding; final median errors within
+# SFM_MEDIAN_TOL_REL), the distributed reduction to `segment_sum` at f32
+# rounding (MESH_BLOCKS_TOL: the largest difference over the largest sum of
+# magnitudes of a segment), the pair-sharded matcher to one launch on all
+# pairs (indices equal, distances 1e-6 relative), and each rank's
+# reconstruction to the other's, bit for bit.
+MESH_RANKS = 2
+MESH_ROTATION_TOL_RAD = 1e-6
+MESH_POSITION_TOL_REL = 1e-4
+MESH_BLOCKS_TOL = 1e-5
+MESH_DIST_TOL_REL = 1e-6
+
+
+def _mesh_failures(label, got, arrays, want, views_want=JAX_CPU_SFM_VIEWS):
+    failures = []
+    if not got["success"] or got["views"] != views_want:
+        failures.append(f"{label}: {got['views']}/{views_want} views, success {got['success']}")
+    if not np.array_equal(arrays[f"{label}_tracks"], want["tracks"]):
+        diff = set(arrays[f"{label}_tracks"].tolist()) ^ set(want["tracks"].tolist())
+        failures.append(f"{label}: estimated tracks differ from one device's on {len(diff)}")
+    if not np.array_equal(arrays[f"{label}_pose_ids"], want["pose_ids"]):
+        failures.append(f"{label}: other views carry poses than on one device")
+        return failures
+    Ra = angle_axis_to_rotation_matrix_np(arrays[f"{label}_orientations"])
+    Rb = angle_axis_to_rotation_matrix_np(want["orientations"])
+    rot = float(np.max(np.linalg.norm(
+        rotation_matrix_to_angle_axis_np(Ra @ np.swapaxes(Rb, -1, -2)), axis=-1)))
+    pos = want["positions"]
+    radius = float(np.median(np.linalg.norm(pos - pos.mean(0), axis=-1)))
+    gap = float(np.max(np.linalg.norm(arrays[f"{label}_positions"] - pos, axis=-1))) / radius
+    med = got["median_pos_err"]
+    log(f"[mesh] {label} against one device: rotations within {rot:.3e} rad, positions within "
+        f"{gap:.3e} of their median radius, median position error {med!r} against "
+        f"{want['median_pos_err']!r}")
+    if not rot <= MESH_ROTATION_TOL_RAD:
+        failures.append(f"{label}: rotations {rot:.3e} rad from one device's")
+    if not gap <= MESH_POSITION_TOL_REL:
+        failures.append(f"{label}: positions {gap:.3e} of the radius from one device's")
+    if not abs(med - want["median_pos_err"]) <= SFM_MEDIAN_TOL_REL * want["median_pos_err"] + 1e-6:
+        failures.append(f"{label}: median position error {med!r}, one device "
+                        f"{want['median_pos_err']!r}")
+    return failures
+
+
+def phase_mesh(dev, sfm_reference, cal_reference):
+    """Phase 18: `tools.mesh_sfm` on two ranks of the card: (a) `estimate` at
+    the reference defaults and (b) calibrated on the mesh, held to phases 5
+    and 6; (c) the distributed reduction on phase 8's observations; (d) the
+    ring scene's 496 pairs split over the ranks, one K1 launch a rank, held
+    to one launch on all pairs here; then a 1-rank NCCL group's
+    triangulation and dense Schur. Returns (K1, K2) launches in the ranks."""
+    from pytheiasfm_tpu_torch.matching.brute_force import match_descriptors_batch_auto
+    from pytheiasfm_tpu_torch.tools import mesh_sfm
+
+    t_phase = time.perf_counter()
+    # (d)'s run on one device: every pair in one K1 launch, as phase 3's.
+    views, _, _ = rs.ring_scene()
+    desc = torch.as_tensor(np.stack([d for _, d in views]), dtype=torch.float32, device=dev)
+    pairs = np.asarray([(i, j) for i in range(len(views)) for j in range(i + 1, len(views))])
+    d1, d2 = desc[torch.as_tensor(pairs[:, 0], device=dev)], desc[torch.as_tensor(pairs[:, 1],
+                                                                                  device=dev)]
+    m = torch.ones(d1.shape[:2], dtype=torch.bool, device=dev)
+    idx1, dist1 = match_descriptors_batch_auto(d1, d2, m, m, FeatureMatcherOptions().lowes_ratio)
+    idx1, dist1 = idx1.cpu().numpy(), dist1.cpu().numpy()
+    del desc, d1, d2, m
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        results, arrays = mesh_sfm.launch(tmp, ranks=MESH_RANKS)
+        wall = time.perf_counter() - t0
+    for line in mesh_sfm.describe(results):
+        log(line)
+    failures = []
+    for label in ("estimate", "calibrated"):
+        if len({r[label]["digest"] for r in results}) != 1:
+            failures.append(f"{label}: the ranks returned different reconstructions")
+    r0, a0 = results[0], arrays[0]
+    failures += _mesh_failures("estimate", r0["estimate"], a0, sfm_reference)
+    failures += _mesh_failures("calibrated", r0["calibrated"], a0, cal_reference)
+    solvers = {b["solver"] for b in r0["calibrated"]["ba_rounds"]}
+    if solvers != {"dense"}:
+        failures.append(f"calibrated: BA took {sorted(solvers)}, not the dense Schur")
+    solvers = {b["solver"] for b in r0["estimate"]["ba_rounds"]}
+    if solvers != {"iterative"}:
+        failures.append(f"estimate: BA took {sorted(solvers)}, not the iterative Schur")
+    for r in results:
+        if not max(r["blocks"]["rel_err"]) <= MESH_BLOCKS_TOL:
+            failures.append(f"rank {r['rank']}: distributed reduction off by "
+                            f"{r['blocks']['rel_err']}")
+    agree = float(np.mean(a0["matcher_idx"] == idx1))
+    dist_err = float(np.max(np.abs(a0["matcher_dist"] - dist1) / np.maximum(np.abs(dist1),
+                                                                             1e-30)))
+    log(f"[mesh] matcher: gathered indices agree with one launch on all {len(pairs)} pairs on "
+        f"{agree!r}; distances within {dist_err:.3e} relative")
+    if agree != 1.0 or not dist_err <= MESH_DIST_TOL_REL:
+        failures.append(f"matcher: agreement {agree}, distances {dist_err:.3e}")
+    rank_launches = [r["matcher"]["k1_launches"] for r in results]
+    if rank_launches != [1] * MESH_RANKS:
+        failures.append(f"matcher: K1 launches a rank {rank_launches}")
+    n = r0["nccl"]
+    if not (n["backend"] == "nccl" and n["same_tracks"]
+            and n["mesh"]["solver"] == n["single"]["solver"] == "dense"
+            and abs(n["mesh"]["cost"] - n["single"]["cost"]) <= 1e-6 * n["single"]["cost"]
+            and n["point_gap"] <= 1e-3):
+        failures.append(f"1-rank NCCL group: {n}")
+    k1 = sum(r["k1_launches"] for r in results)
+    k2_launches = sum(r["k2_launches"] for r in results)
+    log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s (ranks {wall:.1f} s, each "
+        f"process's start included); K1 launches on this path {k1}, K2 launches {k2_launches}")
+    if failures:
+        raise RuntimeError("device mesh checks failed: " + "; ".join(failures))
+    return k1, k2_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke.py: no CUDA card; this script needs one")
         return 2
     dev = torch.device("cuda")
+    t_script = time.perf_counter()
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
@@ -2393,11 +2543,11 @@ def main() -> int:
     phase_global_pose(dev)
 
     # 5. Global SfM end to end at full size.
-    phase_global_sfm()
+    sfm_reference = phase_global_sfm()
 
     # 6. The calibrated configuration: the dense Schur, the flat kernel, the
     # covariance.
-    phase_calibrated_sfm()
+    cal_reference = phase_calibrated_sfm()
 
     # 7. Images to reconstruction at full width.
     images, extrinsics = render_images()
@@ -2432,7 +2582,10 @@ def main() -> int:
     # 17. Files to reconstruction, the other formats, the auxiliaries.
     files_k1, files_k2 = phase_files(images, im["model"])
 
-    # 18. Summary lines.
+    # 18. The device mesh: two ranks on the card.
+    mesh_k1, mesh_k2 = phase_mesh(dev, sfm_reference, cal_reference)
+
+    # 19. Summary lines.
     d128 = next(d for d in rowmin["depths"] if d["D"] == 128)
     kernels = [
         dict(
@@ -2463,6 +2616,7 @@ def main() -> int:
             phase_15_launches=rest_k1,
             phase_16_launches=min_k1,
             phase_17_launches=files_k1,
+            phase_18_launches=mesh_k1,
             **k1,
         ),
         dict(
@@ -2488,8 +2642,10 @@ def main() -> int:
             phase_15_launches=rest_k2,
             phase_16_launches=min_k2,
             phase_17_launches=files_k2,
+            phase_18_launches=mesh_k2,
         ),
     ]
+    log(f"[smoke] phases 1-18 in {time.perf_counter() - t_script:.1f} s")
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

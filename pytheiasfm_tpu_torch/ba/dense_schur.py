@@ -28,6 +28,11 @@ cast: a bf16 product is exact in f32, so only the order of the sum
 differs). The LM loop is `lm.run_lm`. XYZW and XYZW_MANIFOLD tracks,
 per-DOF camera freezing, view priors and frozen intrinsics; free intrinsics
 and INVERSE_DEPTH go to the other kernels.
+
+With a mesh (the JAX kernel's `shard_map` over the track axis) each rank
+forms the pair blocks of its block of the tracks, and one `all_reduce`
+sums them before the Cholesky; the rest is replicated on every rank, the
+LM decisions are rank 0's, and every rank returns rank 0's result.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.segment import segment_sum
+from ..parallel.sharding import mesh_axis
 from .iterative_schur import _abt
 from .lm import (
     BundleAdjustmentOptions,
@@ -64,7 +70,7 @@ class _Layout:
 
     def __init__(self, view_group, group_model_idx, track_views, obs_uv, obs_sqrt_info,
                  obs_mask, present_models, num_views, num_tracks, max_track_len, options,
-                 dtype):
+                 dtype, comm=None):
         V, T, L = num_views, num_tracks, max_track_len
         O = T * L
         dev = track_views.device
@@ -80,10 +86,14 @@ class _Layout:
             options.track_parametrization_type, options.loss_function_type,
             options.robust_loss_width, dtype)
         tv = self.track_views
+        # This rank's block of the tracks (all of them on one device).
+        self.comm = comm
+        first, last = (0, T) if comm is None else comm.block(T)
         self.chunks = [
-            (lo, min(T, lo + _TRACK_CHUNK),
-             (tv[lo:lo + _TRACK_CHUNK, :, None] * V + tv[lo:lo + _TRACK_CHUNK, None, :]).reshape(-1))
-            for lo in range(0, T, _TRACK_CHUNK)
+            (lo, min(last, lo + _TRACK_CHUNK),
+             (tv[lo:min(last, lo + _TRACK_CHUNK), :, None] * V
+              + tv[lo:min(last, lo + _TRACK_CHUNK), None, :]).reshape(-1))
+            for lo in range(first, last, _TRACK_CHUNK)
         ]
 
     @staticmethod
@@ -101,6 +111,8 @@ class _Layout:
         for lo, hi, pair in self.chunks:
             prod = _abt(Z[lo:hi, :, None], W[lo:hi, None])  # [Tc, L, L, 6, 6]
             pairs.index_add_(0, pair, prod.reshape(-1, 6, 6))
+        if self.comm is not None:
+            pairs = self.comm.sum(pairs)
         S = -pairs.reshape(V, V, 6, 6).permute(0, 2, 1, 3)
         ar = torch.arange(V, device=W.device)
         S[ar, :, ar, :] += diag_blocks
@@ -112,7 +124,7 @@ def bundle_adjust_dense(extrinsics, intrinsics, points, view_group, group_model_
                         track_views, obs_uv, obs_sqrt_info, obs_mask, camera_free,
                         point_free, present_models: tuple, num_views: int, num_tracks: int,
                         max_track_len: int, num_groups: int,
-                        options: BundleAdjustmentOptions, priors=None):
+                        options: BundleAdjustmentOptions, priors=None, mesh=None):
     """LM to convergence with the dense Schur on the device of the input
     tensors. Returns (extrinsics, intrinsics, points, summary); the
     intrinsics are constant.
@@ -121,11 +133,14 @@ def bundle_adjust_dense(extrinsics, intrinsics, points, view_group, group_model_
     (XYZW_MANIFOLD), view_group [V], group_model_idx [G], the slot layout
     (track_views [T, L], obs_uv and obs_sqrt_info [T, L, 2], obs_mask
     [T, L]), camera_free [V] or [V, 6], point_free [T]. `priors`: the
-    entry's 9-tuple of per-view prior arrays, or None."""
+    entry's 9-tuple of per-view prior arrays, or None. `mesh`: every rank
+    passes the whole problem and sums the Schur pair blocks of its block of
+    the tracks (see the module doc)."""
     dtype, dev = extrinsics.dtype, extrinsics.device
     V, T, L = num_views, num_tracks, max_track_len
+    comm = mesh_axis(mesh)
     lay = _Layout(view_group, group_model_idx, track_views, obs_uv, obs_sqrt_info, obs_mask,
-                  present_models, V, T, L, options, dtype)
+                  present_models, V, T, L, options, dtype, comm)
     prob = lay.prob
     if prob.invdepth:
         raise ValueError("bundle_adjust_dense does not support INVERSE_DEPTH; "
@@ -194,7 +209,9 @@ def bundle_adjust_dense(extrinsics, intrinsics, points, view_group, group_model_
                       + torch.sum(dp * (mu * torch.clamp(diagVt, min=1e-6) * dp + bp)))
         return new_state, pred, torch.all(torch.isfinite(dxc)), 0
 
-    (ext, pts), summary = run_lm(cost_of, lm_step, (extrinsics, points), options, "dense")
+    (ext, pts), summary = run_lm(cost_of, lm_step, (extrinsics, points), options, "dense", comm)
+    if comm is not None:
+        ext, pts = comm.broadcast(ext), comm.broadcast(pts)
     return ext, intrinsics, pts, summary
 
 

@@ -21,9 +21,19 @@ dispatch rules are the JAX entry's (`:410-443`):
     longer than the rest).
 The JAX entry's launch-cap cost model (`:384-409`) only sizes the TPU's
 launch chunks, which the port does not have (one LM loop, `lm.run_lm`).
+
+With `options.mesh` every rank calls the entry with the same container and
+options. The padded track count rounds up to a multiple of the mesh size
+(the JAX entry's `:230-234`); the dense Schur sums its pair blocks by track
+blocks, the iterative Schur gets this rank's block of the track slots and
+the rowchunks of its own slots, and the flat kernel runs whole on every
+rank, as the JAX entry passes it no mesh. Every rank writes rank 0's
+solution back.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -31,6 +41,7 @@ import torch
 from .. import default_device
 from ..models import intrinsics as intr_models
 from ..models.intrinsics import intrinsics_subset_mask
+from ..parallel.sharding import mesh_axis
 from .dense_schur import DENSE_SCHUR_MAX_CAMERAS, bundle_adjust_dense, joint_covariance_dense
 from .iterative_schur import bundle_adjust_iterative
 from .lm import (
@@ -185,6 +196,12 @@ def _rowchunk_layout(slot, num_views: int):
     return dict(row_view=row_view, rc_src=rc_src, rc_mask=rc_mask, R=Rp, C=C)
 
 
+def _empty_rowchunk():
+    """A rowchunk layout of one padded block of rows that hold nothing."""
+    return dict(row_view=np.zeros((16,), np.int32), rc_src=np.zeros((16, 64), np.int32),
+                rc_mask=np.zeros((16, 64), bool), R=16, C=64)
+
+
 def _rodrigues_np(aa, pts):
     """Rotate pts [N, 3] by angle-axis aa [N, 3] (host numpy)."""
     theta = np.linalg.norm(aa, axis=-1, keepdims=True)
@@ -280,9 +297,7 @@ def _run(recon, view_sel, track_sel, camera_free, point_free, options, dtype,
     """Gather, pad, dispatch and solve; write the solution back into
     `recon` (free views, moved intrinsics groups, free tracks)."""
     device = default_device(device)
-    if options.mesh is not None:
-        raise NotImplementedError("bundle adjustment over a device mesh is not ported yet "
-                                  "(ROADMAP item G1)")
+    comm = mesh_axis(options.mesh)
     tp = options.track_parametrization_type
     prob = _gather_problem(recon, view_sel, track_sel, dtype)
     V, T = recon.num_views(), recon.num_tracks()
@@ -290,6 +305,8 @@ def _run(recon, view_sel, track_sel, camera_free, point_free, options, dtype,
     P = recon.intrinsics.shape[1]
     Vp = _pad_soft(V, 8, 512, 256)
     Tp = _pad_soft(T, 64, 16384, 16384 if T > 150_000 else 8192)
+    if comm is not None:
+        Tp = -(-Tp // comm.size) * comm.size
     # G == 1 keeps its own bucket: the iterative kernel eliminates a single
     # shared group exactly.
     Gp = 1 if G <= 1 else _pad_pow2(G, 4)
@@ -373,23 +390,36 @@ def _run(recon, view_sel, track_sel, camera_free, point_free, options, dtype,
             *common, t(slot["track_views"]), t(slot["uv"]), t(slot["info"]), t(slot["mask"]),
             t(cam_free_p), t(pt_free_p), present_models=present, num_views=Vp, num_tracks=Tp,
             max_track_len=slot["L"], num_groups=Gp, options=options, priors=priors,
+            mesh=options.mesh,
         )
     elif rowchunk is not None:
+        pts_k, pt_free_k = pts_in, pt_free_p
+        if comm is not None:
+            # This rank's block of the track slots and the rowchunks of its
+            # own slots (an empty layout where it holds no observation).
+            slot = {k: (comm.shard(v) if isinstance(v, np.ndarray) else v)
+                    for k, v in slot.items()}
+            rowchunk = _rowchunk_layout(slot, Vp) or _empty_rowchunk()
+            pts_k, pt_free_k = comm.shard(pts_in), comm.shard(pt_free_p)
         ext, intr_out, pts, summary = bundle_adjust_iterative(
-            *common, t(slot["track_views"]), t(slot["uv"]), t(slot["info"]), t(slot["mask"]),
+            t(ext_in), t(intr_in), t(pts_k), t(view_group), t(group_model_idx),
+            t(slot["track_views"]), t(slot["uv"]), t(slot["info"]), t(slot["mask"]),
             t(rowchunk["row_view"]), t(rowchunk["rc_src"]), t(rowchunk["rc_mask"]),
-            t(cam_free_p), t(pt_free_p), t(intr_free),
+            t(cam_free_p), t(pt_free_k), t(intr_free),
             present_models=present, num_views=Vp, num_tracks=Tp, max_track_len=slot["L"],
             num_rows=rowchunk["R"], row_chunk=rowchunk["C"], num_groups=Gp, options=options,
-            priors=priors,
+            priors=priors, mesh=options.mesh,
         )
     else:
         ext, intr_out, pts, summary = bundle_adjust(
             *common, t(prob["obs_view"]), t(prob["obs_track"]), t(prob["obs_uv"]),
             t(prob["obs_sqrt_info"]), t(prob["obs_mask"]), t(cam_free_p), t(pt_free_p),
             t(intr_free), t(track_ref), t(track_bearing), present_models=present,
-            num_views=Vp, num_tracks=Tp, num_groups=Gp, options=options, priors=priors,
+            num_views=Vp, num_tracks=Tp, num_groups=Gp,
+            options=dataclasses.replace(options, mesh=None), priors=priors,
         )
+        if comm is not None:  # the same solve on every rank: rank 0's bits
+            ext, intr_out, pts = comm.broadcast(ext), comm.broadcast(intr_out), comm.broadcast(pts)
     ext = ext.cpu().numpy().astype(recon.dtype)[:V]
     pts = pts.cpu().numpy().astype(recon.dtype)[:T]
     recon.view_extrinsics[camera_free] = ext[camera_free]

@@ -45,6 +45,15 @@ extras). `use_mixed_precision_solves`
 rounds the PCG matvec's operands to bf16 (accumulation stays in the state's
 dtype).
 
+On a mesh (the JAX kernel with its slot and rowchunk arrays sharded over
+the device mesh, GSPMD inserting the collectives) the track-slot inputs and
+the points are this rank's block of the tracks, and its view rowchunks are
+those of its own slots. Every sum into views, groups or the coarse level,
+the exactly eliminated intrinsics block, the cost and the points' share of
+the predicted decrease are all-reduced; the camera state stays replicated,
+the LM and PCG decisions are rank 0's, the points are gathered at the end
+and every rank returns rank 0's result.
+
 The JAX kernel's TPU forms are not copied (one-hot matmuls in place of
 scatter, the 64-float row padding and fusion barrier, the `lax.scan`
 chunked build, the closed-form inverse of the Schur-Jacobi blocks). The
@@ -62,6 +71,7 @@ import torch
 from torch.autograd import forward_ad
 
 from ..models.intrinsics import intrinsics_subset_mask
+from ..parallel.sharding import mesh_axis
 from .lm import (
     BundleAdjustmentOptions,
     OptimizeIntrinsicsType,
@@ -119,8 +129,10 @@ class _Problem:
     def __init__(self, extrinsics, intrinsics, points, view_group, group_model_idx,
                  track_views, obs_uv, obs_sqrt_info, obs_mask, row_view, rc_src, rc_mask,
                  camera_free, point_free, intrinsics_free, present_models, num_views,
-                 num_tracks, max_track_len, num_rows, row_chunk, num_groups, options, priors=None):
+                 num_tracks, max_track_len, num_rows, row_chunk, num_groups, options, priors=None,
+                 comm=None):
         self.priors = priors
+        self.comm = comm
         tp = options.track_parametrization_type
         if tp == TrackParametrizationType.INVERSE_DEPTH:
             raise ValueError(
@@ -130,7 +142,9 @@ class _Problem:
         self.options = options
         self.dtype = dtype = extrinsics.dtype
         self.device = device = extrinsics.device
-        V, T, L, G = num_views, num_tracks, max_track_len, num_groups
+        # T: the tracks this rank holds (all of them on one device); the
+        # size gates read the whole problem's `num_tracks`.
+        V, T, L, G = num_views, track_views.shape[0], max_track_len, num_groups
         self.V, self.T, self.L, self.G = V, T, L, G
         self.R, self.C = num_rows, row_chunk
         self.O = T * L
@@ -154,7 +168,7 @@ class _Problem:
         self.use_coarse = V >= 1024
         self.group = 16 * max(1, -(-V // (16 * _COARSE_TARGET)))
         self.Vc = -(-V // self.group)
-        self.coarse_stride = 4 if T * L > _SCAN_SLOT_THRESHOLD else 1
+        self.coarse_stride = 4 if num_tracks * L > _SCAN_SLOT_THRESHOLD else 1
 
         self.cam_free, self.pt_free = _free_masks(camera_free, point_free, options, V, dtype)
         intr_free = intrinsics_free.to(dtype)
@@ -263,9 +277,13 @@ class _Problem:
         Ji = Ji * scale * self.intr_free_slot if self.has_intr else None
         return r, Jc, Ji, Jp, s
 
+    def total(self, x):
+        """A sum over this rank's tracks, all-reduced on a mesh."""
+        return x if self.comm is None else self.comm.sum(x)
+
     def cost_of(self, state):
         _, _, _, _, s = self.slot_residuals(*state, with_jac=False)
-        return (0.5 * torch.sum(loss_rho(s, self.loss, self.width) * self.maskf)
+        return (self.total(0.5 * torch.sum(loss_rho(s, self.loss, self.width) * self.maskf))
                 + _prior_cost(state[0], self.priors))
 
     def apply_step(self, pts, dp):
@@ -279,7 +297,7 @@ class _Problem:
 
     def rows_to_views(self, vals_r):  # [R, F] -> [V, F]
         out = torch.zeros((self.V, vals_r.shape[-1]), dtype=vals_r.dtype, device=self.device)
-        return out.index_add_(0, self.row_view, vals_r)
+        return self.total(out.index_add_(0, self.row_view, vals_r))
 
     def views_to_groups(self, vals_v):  # [V, F] -> [G, F]
         out = torch.zeros((self.G, vals_v.shape[-1]), dtype=vals_v.dtype, device=self.device)
@@ -339,10 +357,18 @@ class _Problem:
             Yi_t = _ab(Wi_t, Vinv)
             ji_cross = JcX[..., 6 + K + 1:]  # [T, L, 6, Fi]
             packs.append((ji_cross - _abt(Y, Wi_t[:, None])).reshape(T, L, 6 * Fi))
+            # One all-reduce on a mesh: Sq1, bi1, Di1 and gq1's track sum.
             Sq1 = torch.sum(Ug_slot, dim=(0, 1)) - torch.einsum("tik,tjk->ij", Yi_t, Wi_t)
-            bi1 = -torch.sum(ai_slot, dim=(0, 1))
-            Di1 = torch.clamp(torch.sum(_diag(Ug_slot), dim=(0, 1)), min=1e-6)
-            gq1 = bi1 - torch.einsum("tik,tk->i", Yi_t, bp)
+            sums = self.total(torch.cat([
+                Sq1.reshape(-1),
+                -torch.sum(ai_slot, dim=(0, 1)),
+                torch.sum(_diag(Ug_slot), dim=(0, 1)),
+                -torch.einsum("tik,tk->i", Yi_t, bp),
+            ]))
+            Sq1 = sums[:Fi * Fi].reshape(Fi, Fi)
+            bi1, Di1, gq1 = torch.split(sums[Fi * Fi:], Fi)
+            Di1 = torch.clamp(Di1, min=1e-6)
+            gq1 = bi1 + gq1
         elif joint_intr:
             Yi = _ab(Wi, Vinv[:, None])
             packs += [(Ug_slot - _abt(Yi, Wi)).reshape(T, L, Fi * Fi), ai_slot, _diag(Ug_slot),
@@ -447,7 +473,7 @@ class _Problem:
             return (pc,)
 
         g = (gc, gint) if joint_intr else (gc,)
-        dxs, n_pcg = _pcg(S_mv, precond, g, self.options)
+        dxs, n_pcg = _pcg(S_mv, precond, g, self.options, self.comm)
         dc = dxs[0] * self.cam_free
         if exact_elim:
             # The eliminated intrinsics step: dq = Sq^-1 (gq - B^T dc).
@@ -470,13 +496,14 @@ class _Problem:
         new_state = (ext_c + dc, intr_c + di, self.apply_step(pts_c, dp))
         pred = 0.5 * (
             torch.sum(dc * (mu * Dc * dc + bc))
-            + torch.sum(dp * (mu * torch.clamp(diagVt, min=1e-6) * dp + bp))
+            + self.total(torch.sum(dp * (mu * torch.clamp(diagVt, min=1e-6) * dp + bp)))
         )
         if exact_elim:
             pred = pred + 0.5 * torch.sum(di_f * (mu * Di1[None, :] * di_f + bi1[None, :]))
         elif joint_intr:
             pred = pred + 0.5 * torch.sum(di_f * (mu * Di * di_f + bi))
-        ok = (torch.all(torch.isfinite(dc)) & torch.all(torch.isfinite(dp))
+        ok = (torch.all(torch.isfinite(dc))
+              & (self.total(torch.sum(~torch.isfinite(dp), dtype=dtype)) == 0)
               & torch.all(torch.isfinite(di)))
         return new_state, pred, ok, n_pcg
 
@@ -494,9 +521,10 @@ class _Problem:
         pair = (cslot[:, :, None] * Vc + cslot[:, None, :]).reshape(-1)
         off = torch.zeros((Vc * Vc, 6, 6), dtype=dtype, device=dev)
         off.index_add_(0, pair, prod.reshape(-1, 6, 6))
+        off = self.total(off)
         Sc_off = float(cs) * off.reshape(Vc, Vc, 6, 6).permute(0, 2, 1, 3)
         Uc = torch.zeros((Vc, 36), dtype=dtype, device=dev)
-        Uc.index_add_(0, cslot.reshape(-1), U_slot[::cs].reshape(-1, 36))
+        Uc = self.total(Uc.index_add_(0, cslot.reshape(-1), U_slot[::cs].reshape(-1, 36)))
         Sc4 = self.views_to_coarse(extras_v) + float(cs) * Uc.reshape(Vc, 6, 6)
         Sc = torch.zeros((Vc, 6, Vc, 6), dtype=dtype, device=dev)
         arc = torch.arange(Vc, device=dev)
@@ -518,20 +546,29 @@ def bundle_adjust_iterative(
     obs_sqrt_info, obs_mask, row_view, rc_src, rc_mask, camera_free, point_free,
     intrinsics_free, present_models: tuple, num_views: int, num_tracks: int,
     max_track_len: int, num_rows: int, row_chunk: int, num_groups: int,
-    options: BundleAdjustmentOptions, priors=None,
+    options: BundleAdjustmentOptions, priors=None, mesh=None,
 ):
     """LM to convergence with the rowchunk iterative-Schur kernel on the
     device of the input tensors (the LM loop: `lm.run_lm`). Returns
     (extrinsics, intrinsics, points, summary). `priors`: the entry's 9-tuple
-    of per-view prior arrays, or None."""
+    of per-view prior arrays, or None.
+
+    With `mesh`, the track-slot arrays, `points` and `point_free` are this
+    rank's block of the `num_tracks` tracks (`num_tracks / mesh size` of
+    them), and the rowchunk arrays (`num_rows` x `row_chunk`) lay out this
+    rank's slots; the returned points are every rank's, gathered."""
+    comm = mesh_axis(mesh)
     prob = _Problem(
         extrinsics, intrinsics, points, view_group, group_model_idx, track_views, obs_uv,
         obs_sqrt_info, obs_mask, row_view, rc_src, rc_mask, camera_free, point_free,
         intrinsics_free, present_models, num_views, num_tracks, max_track_len, num_rows,
-        row_chunk, num_groups, options, priors,
+        row_chunk, num_groups, options, priors, comm,
     )
     state, summary = run_lm(prob.cost_of, prob.lm_step, (extrinsics, intrinsics, points),
-                            options, "iterative")
-    summary.size_gates = dict(V=prob.V, T=prob.T, L=prob.L, use_coarse=prob.use_coarse,
+                            options, "iterative", comm)
+    if comm is not None:
+        ext, intr, pts = state
+        state = (comm.broadcast(ext), comm.broadcast(intr), comm.gather(pts))
+    summary.size_gates = dict(V=prob.V, T=num_tracks, L=prob.L, use_coarse=prob.use_coarse,
                               group=prob.group, Vc=prob.Vc, coarse_stride=prob.coarse_stride)
     return (*state, summary)

@@ -47,6 +47,8 @@ from ..models import intrinsics as intr
 from ..models.intrinsics import OptimizeIntrinsicsType
 from ..ops import rotation as rotops
 from ..ops.segment import segment_sum
+from ..ops.segment import segment_sum as _segment_sum
+from ..parallel.sharding import local_shard, mesh_axis
 from .losses import LossFunctionType, loss_rho, loss_weight
 
 __all__ = [
@@ -115,8 +117,14 @@ class BundleAdjustmentOptions:
     use_orientation_priors: bool = False
     use_gravity_priors: bool = False
     verbose: bool = False
-    # A device mesh in the JAX package. The port runs on one device; a mesh
-    # raises in the entry (ROADMAP item G1).
+    # Device mesh for bundle adjustment over several ranks (a
+    # `torch.distributed` `DeviceMesh`, `parallel.make_mesh`; every rank
+    # calls the same entry with the same inputs). Through the entry, the
+    # dense Schur sums its off-diagonal Schur product track-sharded with one
+    # `all_reduce` (`dense_schur.py`), and the iterative Schur shards its
+    # slot and rowchunk arrays by tracks and all-reduces every sum into
+    # views, groups and the coarse level; the flat kernel, called directly
+    # with a mesh, shards its observations. None = one device.
     mesh: object = None
 
 
@@ -507,11 +515,16 @@ def _dot(a, b):
     return sum(torch.sum(x * y) for x, y in zip(a, b))
 
 
-def _pcg(S_mv, precond, g, options):
+def _pcg(S_mv, precond, g, options, comm=None):
     """Preconditioned CG from 0 on S x = g, x and g tuples of blocks: stops
     after `linear_solver_iterations` or when |r|^2 <= tol^2 |g|^2 (read on
     the host before each iteration, as the JAX `while_loop` tests it).
-    Returns (x, the iterations run)."""
+    Returns (x, the iterations run).
+
+    On a mesh (`comm`, a `parallel.sharding.MeshAxis`) the camera-side
+    vectors are replicated, every sum into them all-reduced inside `S_mv`,
+    so their dot products are whole on every rank; the stopping test is
+    rank 0's, broadcast."""
     tol2 = (options.linear_solver_tolerance ** 2) * _dot(g, g)
     x = tuple(torch.zeros_like(v) for v in g)
     rres = g
@@ -520,7 +533,7 @@ def _pcg(S_mv, precond, g, options):
     rz = _dot(g, z)
     one = torch.ones((), dtype=rz.dtype, device=rz.device)
     it = 0
-    while it < options.linear_solver_iterations and bool(_dot(rres, rres) > tol2):
+    while it < options.linear_solver_iterations and _decide(_dot(rres, rres) > tol2, comm):
         Sp = S_mv(p)
         pSp = _dot(p, Sp)
         alpha = rz / torch.where(pSp == 0, one, pSp)
@@ -535,7 +548,12 @@ def _pcg(S_mv, precond, g, options):
     return x, it
 
 
-def run_lm(cost_of, lm_step, state, options: BundleAdjustmentOptions, solver: str):
+def _decide(flag, comm) -> bool:
+    return bool(flag) if comm is None else comm.decide(flag)
+
+
+def run_lm(cost_of, lm_step, state, options: BundleAdjustmentOptions, solver: str,
+           comm=None):
     """LM to convergence from `state` (a tuple of tensors): `lm_step(state,
     mu)` proposes (new state, predicted decrease, all-finite flag, linear
     solver iterations). Returns (state, summary).
@@ -554,7 +572,11 @@ def run_lm(cost_of, lm_step, state, options: BundleAdjustmentOptions, solver: st
     carrying the damping, summing the iterations, taking `initial_cost` from
     the first launch and stopping on convergence, which computes what one
     loop computes. A zero-iteration budget returns the state unchanged with
-    zero costs, as there."""
+    zero costs, as there.
+
+    On a mesh (`comm`) `cost_of` and `lm_step` return whole (all-reduced)
+    costs and decreases, and whether a step is taken and whether the loop
+    stops are rank 0's decisions, broadcast."""
     if options.max_num_iterations <= 0:
         return state, BundleAdjustmentSummary(
             success=True, initial_cost=0.0, final_cost=0.0, num_iterations=0,
@@ -578,15 +600,20 @@ def run_lm(cost_of, lm_step, state, options: BundleAdjustmentOptions, solver: st
         new_cost = cost64(new_state)
         actual = cost - new_cost
         accept = ok & (actual > 0) & torch.isfinite(new_cost)
+        stop = torch.isfinite(new_cost) & (torch.abs(actual) / torch.clamp(cost, min=1e-30)
+                                           < options.function_tolerance)
+        if comm is not None:
+            accept, stop = comm.broadcast(torch.stack([accept, stop]))
         gain = actual / torch.clamp(pred, min=1e-30)
         shrink = torch.clamp(1.0 - (2.0 * torch.clamp(gain, 0.0, 1.0) - 1.0) ** 3, min=1.0 / 3.0)
         mu = torch.clamp(torch.where(accept, mu * shrink, mu * 4.0), 1e-12, 1e10).to(mu.dtype)
         state = tuple(torch.where(accept, n_, o) for n_, o in zip(new_state, state))
-        rel_change = torch.abs(actual) / torch.clamp(cost, min=1e-30)
-        stop = torch.isfinite(new_cost) & (rel_change < options.function_tolerance)
         cost = torch.where(accept, new_cost, cost)
         it += 1
         done = bool(stop)
+    if comm is not None:  # rank 0's costs and damping in every rank's summary
+        initial_cost, cost, mu = comm.broadcast(
+            torch.stack([initial_cost, cost, mu.to(cost.dtype)]))
     initial, final = float(initial_cost), float(cost)
     return state, BundleAdjustmentSummary(
         success=bool(torch.isfinite(cost)) and final <= initial,
@@ -629,11 +656,27 @@ def bundle_adjust(extrinsics, intrinsics, points, view_group, group_model_idx, o
     (obs_view, obs_track [O], obs_uv, obs_sqrt_info [O, 2], obs_mask [O]),
     camera_free [V] or [V, 6], point_free [T], intrinsics_free [G, P], and
     for INVERSE_DEPTH each track's reference view [T] and bearing [T, 3].
-    `priors`: the entry's 9-tuple of per-view prior arrays, or None."""
+    `priors`: the entry's 9-tuple of per-view prior arrays, or None.
+
+    With `options.mesh` every rank passes the whole problem and keeps its
+    block of the observations (the table padded with masked rows to a
+    multiple of the mesh size): the JAX package's kernel under a jit over
+    observation-sharded inputs. Every segment sum over observations (and
+    the cost) is all-reduced; the parameters stay replicated, and every
+    rank returns rank 0's."""
     dtype, dev = extrinsics.dtype, extrinsics.device
     V, T, G = num_views, num_tracks, num_groups
     P = intrinsics.shape[1]
-    prob = _Problem((obs_view, obs_track, obs_uv, obs_sqrt_info, obs_mask), view_group,
+    comm = mesh_axis(options.mesh)
+    obs = (obs_view, obs_track, obs_uv, obs_sqrt_info, obs_mask)
+    if comm is not None:
+        obs = tuple(local_shard(a, comm) for a in obs)
+
+    def segment_sum(data, ids, n):  # over this rank's observations, all-reduced
+        out = _segment_sum(data, ids, n)
+        return out if comm is None else comm.sum(out)
+
+    prob = _Problem(obs, view_group,
                     track_ref_view, track_bearing, present_models, group_model_idx,
                     options.track_parametrization_type, options.loss_function_type,
                     options.robust_loss_width, dtype)
@@ -653,7 +696,8 @@ def bundle_adjust(extrinsics, intrinsics, points, view_group, group_model_idx, o
 
     def cost_of(state):
         ext, q, pts = state
-        return prob.cost(ext, q, pts, intr_rows=intr_rows) + _prior_cost(ext, priors)
+        cost = prob.cost(ext, q, pts, intr_rows=intr_rows)
+        return (cost if comm is None else comm.sum(cost)) + _prior_cost(ext, priors)
 
     def lm_step(state, mu):
         ext_c, intr_c, pts_c = state
@@ -758,7 +802,7 @@ def bundle_adjust(extrinsics, intrinsics, points, view_group, group_model_idx, o
                 return (pc, torch.sum(Mg_inv * xs[1][:, None, :], dim=-1))
             return (pc,)
 
-        dxs, n_pcg = _pcg(S_mv, precond, g, options)
+        dxs, n_pcg = _pcg(S_mv, precond, g, options, comm)
         dc = dxs[0] * cam_free
         di = dxs[1] * intr_free if has_intr else torch.zeros_like(intr_c)
 
@@ -775,5 +819,8 @@ def bundle_adjust(extrinsics, intrinsics, points, view_group, group_model_idx, o
               & torch.all(torch.isfinite(di)))
         return new_state, pred, ok, n_pcg
 
-    state, summary = run_lm(cost_of, lm_step, (extrinsics, intrinsics, points), options, "flat")
+    state, summary = run_lm(cost_of, lm_step, (extrinsics, intrinsics, points), options, "flat",
+                            comm)
+    if comm is not None:
+        state = tuple(comm.broadcast(x) for x in state)
     return (*state, summary)

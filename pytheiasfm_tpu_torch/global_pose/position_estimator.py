@@ -18,8 +18,9 @@ t_ij = R_iᵀ · position_2 with c_j − c_i ≈ s_ij t_ij, s_ij > 0.
 
 `estimate_positions` dispatches as the JAX package's: LIGT falls through to
 LUD there (`ligt_positions` is reached only by calling it; ROADMAP section
-3), and so it does here. A device mesh raises `NotImplementedError` (ROADMAP
-item G1). LINEAR_TRIPLET and LiGT start from a random draw, which the JAX
+3), and so it does here. On a device mesh LUD shards the edge axis (the
+other types ignore the mesh, as in the JAX package). LINEAR_TRIPLET and
+LiGT start from a random draw, which the JAX
 package takes from `jax.random`: here it comes from a `torch.Generator` with
 a fixed seed, or from the caller (`start`).
 """
@@ -34,6 +35,7 @@ from .. import default_device
 from ..math.l1 import conjugate_gradient, seeded_normal
 from ..ops import rotation as rotops
 from ..ops.segment import segment_sum
+from ..parallel.sharding import local_shard, mesh_axis
 
 __all__ = [
     "GlobalPositionEstimatorType",
@@ -77,7 +79,7 @@ def _deflate(c):
 def least_unsquared_deviation_positions(
     edge_i, edge_j, t_world, free_mask, num_views: int,
     outer_iters: int = 200, cg_iters: int = 30, rho: float = 1.0,
-    edge_mask=None,
+    edge_mask=None, mesh=None,
 ):
     """LUD: min Σ ‖c_j − c_i − s_ij t_ij‖₂ s.t. s_ij ≥ 1.
 
@@ -93,8 +95,20 @@ def least_unsquared_deviation_positions(
     sum of norms), and the z2-update projects the scales to s ≥ 1, the
     constraint that forbids the collapse c ≡ 0. Tensors on one device;
     returns [V, 3].
+
+    `mesh`: the edge arrays are this rank's block of the edges (padded ones
+    with t_world = 0, i = j and `edge_mask` False: exact zero rows). A x,
+    z1 and u1 are the rank's edges'; x, z2 and u2 stay whole on every rank,
+    so that CG's inner products need no collective: Aᵀ's sums into views
+    and the rank's scale entries (zeros elsewhere) travel in one
+    `all_reduce` a product.
     """
+    comm = mesh_axis(mesh)
     E = edge_i.shape[0]
+    lo, hi, E_all = 0, E, E  # this rank's edges among all of them
+    if comm is not None:
+        E_all = E * comm.size
+        lo, hi = comm.block(E_all)
     dtype = t_world.dtype
     device = t_world.device
     fm = free_mask.to(dtype)[:, None]
@@ -106,16 +120,24 @@ def least_unsquared_deviation_positions(
         else edge_mask.to(dtype)
     )
     deg = segment_sum(ones, edge_i, num_views) + segment_sum(ones, edge_j, num_views)
+    if comm is not None:
+        deg = comm.sum(deg)
     inv_deg = torch.where(deg > 0, 1.0 / torch.clamp(deg, min=1.0), 1.0)
 
     def apply_A(x):
         dc = x[:nC].reshape(num_views, 3) * fm
-        ds = x[nC:]
+        ds = x[nC + lo:nC + hi]
         return dc[edge_j] - dc[edge_i] - ds[:, None] * t_world
 
     def apply_At(re):
         gc = segment_sum(re, edge_j, num_views) - segment_sum(re, edge_i, num_views)
         gs = -torch.sum(re * t_world, dim=-1)
+        if comm is not None:
+            out = torch.zeros((nC + E_all,), dtype=dtype, device=device)
+            out[:nC] = gc.reshape(-1)
+            out[nC + lo:nC + hi] = gs
+            out = comm.sum(out)
+            gc, gs = out[:nC].reshape(num_views, 3), out[nC:]
         return torch.cat([(gc * fm).reshape(-1), gs])
 
     def matvec(x):
@@ -134,12 +156,12 @@ def least_unsquared_deviation_positions(
 
     x = torch.cat([
         torch.zeros((nC,), dtype=dtype, device=device),
-        torch.ones((E,), dtype=dtype, device=device),
+        torch.ones((E_all,), dtype=dtype, device=device),
     ])
     z1 = torch.zeros((E, 3), dtype=dtype, device=device)
     u1 = torch.zeros((E, 3), dtype=dtype, device=device)
-    z2 = torch.ones((E,), dtype=dtype, device=device)
-    u2 = torch.zeros((E,), dtype=dtype, device=device)
+    z2 = torch.ones((E_all,), dtype=dtype, device=device)
+    u2 = torch.zeros((E_all,), dtype=dtype, device=device)
     for _ in range(outer_iters):
         rhs = apply_At(z1 - u1)
         rhs = torch.cat([rhs[:nC], rhs[nC:] + (z2 - u2)])
@@ -416,11 +438,12 @@ def estimate_positions(
     LINEAR_TRIPLET takes the weights, BATA its own LUD start; every other
     type (LIGT included) runs LUD. `device`: where the solve runs (None:
     the CUDA card).
+
+    `mesh` (LUD only, as in the JAX package; every rank calls with the same
+    graph and orientations): the edges are padded to a multiple of the mesh
+    size with t_world = 0, i = j = 0 and a False mask, each rank solves with
+    its block of them, and every rank returns rank 0's positions.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "position estimation over a device mesh is not ported yet (ROADMAP item G1)"
-        )
     device = default_device(device)
     view_ids = view_graph.view_ids()
     if not view_ids:
@@ -458,7 +481,13 @@ def estimate_positions(
         out = linear_triplet_positions(ei_d, ej_d, t_world, t(weights), V)
     elif kind == GlobalPositionEstimatorType.BATA:
         out = bata_positions(ei_d, ej_d, t_world, free_d, V)
-    else:
+    elif mesh is None:
         out = least_unsquared_deviation_positions(ei_d, ej_d, t_world, free_d, V)
+    else:
+        comm = mesh_axis(mesh)
+        mask = t(np.ones(len(ei), bool))
+        shard = [local_shard(a, comm) for a in (ei_d, ej_d, t_world, mask)]
+        out = comm.broadcast(least_unsquared_deviation_positions(
+            shard[0], shard[1], shard[2], free_d, V, edge_mask=shard[3], mesh=comm))
     out = out.cpu().numpy()
     return {v: out[index[v]] for v in view_ids}

@@ -16,7 +16,8 @@ LINEAR (`linear_rotation_estimator.h:55`, Martinec-Pajdla by block inverse
 iteration), LAGRANGE_DUAL (`lagrange_dual_rotation_estimator.h:62`, the SDP
 relaxation by `math/sdp.py`'s staircase) and HYBRID
 (`hybrid_rotation_estimator.h:51`, LAGRANGE_DUAL then IRLS), with the MST
-initialisation. A device mesh raises `NotImplementedError` (ROADMAP item G1).
+initialisation. On a device mesh ROBUST_L1L2 shards the edge axis (the
+other types ignore the mesh, as in the JAX package).
 
 LINEAR starts its inverse iteration from a random draw, which the JAX
 package takes from `jax.random`: here it comes from a `torch.Generator`
@@ -40,6 +41,7 @@ from ..ops.rotation_np import (
     rotation_matrix_to_angle_axis_np,
 )
 from ..ops.segment import segment_sum
+from ..parallel.sharding import local_shard, mesh_axis
 
 __all__ = [
     "GlobalRotationEstimatorType",
@@ -147,9 +149,14 @@ def _signed_incidence(edge_i, edge_j, num_views, dtype):
     return (edge_j[:, None] == ar[None, :]).to(dtype) - (edge_i[:, None] == ar[None, :]).to(dtype)
 
 
-def _degree_preconditioner(edge_i, edge_j, w, num_views):
+def _total(x, comm):
+    """A sum over this rank's edges, all-reduced on a mesh."""
+    return x if comm is None else comm.sum(x)
+
+
+def _degree_preconditioner(edge_i, edge_j, w, num_views, comm=None):
     """r ↦ r / (the view's weighted degree), 1 for a view without edges."""
-    degree = segment_sum(w, edge_i, num_views) + segment_sum(w, edge_j, num_views)
+    degree = _total(segment_sum(w, edge_i, num_views) + segment_sum(w, edge_j, num_views), comm)
     inv_deg = torch.where(degree > 0, 1.0 / torch.clamp(degree, min=1.0), 1.0)
     return lambda r: (r.reshape(num_views, 3) * inv_deg[:, None]).reshape(-1)
 
@@ -165,7 +172,7 @@ def _laplacian(edge_i, edge_j, w, num_views):
 def robust_rotation_averaging(
     orientations, edge_i, edge_j, rel_aa, free_mask, num_views: int,
     options: RobustRotationEstimatorOptions = RobustRotationEstimatorOptions(),
-    edge_mask=None,
+    edge_mask=None, mesh=None,
 ):
     """L1 stage then IRLS stage, each relinearized every step.
 
@@ -180,7 +187,12 @@ def robust_rotation_averaging(
     one-hot(i)) as a dense product while E·V is at most
     `_DENSE_INCIDENCE_MAX`, else from segment sums. A and Aᵀ follow the
     same choice.
+
+    `mesh`: the edge arrays are this rank's block of the edges; every sum
+    from edges into views (the Laplacians, the degrees, Aᵀ) is all-reduced,
+    and the view-sized solve is replicated.
     """
+    comm = mesh_axis(mesh)
     dtype = orientations.dtype
     device = orientations.device
     fm = free_mask.to(dtype)[:, None]
@@ -193,9 +205,9 @@ def robust_rotation_averaging(
     use_dense = E * num_views <= _DENSE_INCIDENCE_MAX
     if use_dense:
         D = _signed_incidence(edge_i, edge_j, num_views, dtype) * em
-        Lap = D.T @ D
+        Lap = _total(D.T @ D, comm)
     else:
-        Lap = _laplacian(edge_i, edge_j, em[:, 0], num_views)
+        Lap = _total(_laplacian(edge_i, edge_j, em[:, 0], num_views), comm)
 
     def apply_A(delta):
         d = delta.reshape(num_views, 3) * fm
@@ -206,15 +218,15 @@ def robust_rotation_averaging(
     def apply_At(y):
         yv = y.reshape(-1, 3) * em
         if use_dense:
-            return (D.T @ yv * fm).reshape(-1)
+            return (_total(D.T @ yv, comm) * fm).reshape(-1)
         acc = segment_sum(yv, edge_j, num_views) - segment_sum(yv, edge_i, num_views)
-        return (acc * fm).reshape(-1)
+        return (_total(acc, comm) * fm).reshape(-1)
 
     def normal_matvec(delta):
         d = delta.reshape(num_views, 3) * fm
         return (Lap @ d * fm).reshape(-1)
 
-    precond = _degree_preconditioner(edge_i, edge_j, em[:, 0], num_views)
+    precond = _degree_preconditioner(edge_i, edge_j, em[:, 0], num_views, comm)
 
     R_aa = orientations
     for _ in range(options.max_num_l1_iterations):
@@ -237,9 +249,9 @@ def robust_rotation_averaging(
         sw = torch.sqrt(w)[:, None]
         # Weighted Laplacian Dᵀ diag(w) D, once a relinearization.
         if use_dense:
-            Lw = D.T @ (D * w[:, None])
+            Lw = _total(D.T @ (D * w[:, None]), comm)
         else:
-            Lw = _laplacian(edge_i, edge_j, w, num_views)
+            Lw = _total(_laplacian(edge_i, edge_j, w, num_views), comm)
 
         def matvec(v, Lw=Lw):
             d = v.reshape(num_views, 3) * fm
@@ -468,11 +480,13 @@ def estimate_rotations(
     ROBUST_L1L2 start from it with the fixed views (default: the first)
     held. `options` applies to ROBUST_L1L2. `device`: where the solve runs
     (None: the CUDA card). One copy to the device, one back.
+
+    `mesh` (ROBUST_L1L2 only, as in the JAX package; every rank calls with
+    the same graph): the edges are padded to a multiple of the mesh size
+    with i = j = 0, an identity relative rotation and `edge_mask` False
+    (exact zero rows of the masked operator), each rank solves with its
+    block of them, and every rank returns rank 0's orientations.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "rotation averaging over a device mesh is not ported yet (ROADMAP item G1)"
-        )
     device = default_device(device)
     view_ids = view_graph.view_ids()
     if not view_ids:
@@ -511,10 +525,18 @@ def estimate_rotations(
         out = hybrid_rotation_averaging(*edges, t(np.ones(V, bool)), V)
     elif kind == GlobalRotationEstimatorType.NONLINEAR:
         out = nonlinear_rotation_averaging(t(init), *edges, t(free), V)
-    else:
+    elif mesh is None:
         out = robust_rotation_averaging(
             t(init), *edges, t(free), V, options or RobustRotationEstimatorOptions()
         )
+    else:
+        comm = mesh_axis(mesh)
+        mask = np.ones(len(ei), bool)
+        shard = [t(local_shard(a, comm)) for a in (ei, ej, rel_rot, mask)]
+        out = comm.broadcast(robust_rotation_averaging(
+            t(init), *shard[:3], t(free), V, options or RobustRotationEstimatorOptions(),
+            edge_mask=shard[3], mesh=comm,
+        ))
     if kind in (GlobalRotationEstimatorType.LINEAR, GlobalRotationEstimatorType.LAGRANGE_DUAL,
                 GlobalRotationEstimatorType.HYBRID):
         # Gauge: align to the MST start.

@@ -213,7 +213,9 @@ def run(V=553, T=50_000, seed=0, estimator_type="global", calibrated=False, devi
     plus `estimated_tracks`, `estimated_views`, `ba_rounds` (the
     estimator's `bundle_adjustment_rounds`), `removed_edges` (the edges each
     filter removed), `corrupted` (the edges `contaminate` corrupted),
-    `reconstruction` (the estimated container) and `stage_seconds` (each
+    `reconstruction` (the estimated container), `poses` (the global
+    estimator's orientations and positions of steps 3-7, dicts by view) and
+    `stage_seconds` (each
     stage of `estimate`, host clock ending in a device synchronize)). With
     `profile`, each stage also runs under `torch.profiler`, and
     `launches` / `device_seconds` give its kernel launches and their device
@@ -283,6 +285,7 @@ def run(V=553, T=50_000, seed=0, estimator_type="global", calibrated=False, devi
         removed_edges=estimator.removed_edges,
         corrupted=corrupted,
         reconstruction=recon,
+        poses=getattr(estimator, "estimated_poses", None),
         stage_seconds=timer.seconds,
         launches=timer.launches,
         device_seconds=timer.device_seconds,

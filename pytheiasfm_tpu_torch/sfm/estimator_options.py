@@ -149,9 +149,11 @@ class ReconstructionEstimatorOptions:
     # Localization.
     localization_pnp_type: PnPType = PnPType.DLS
 
-    # Multi-device execution (no reference analogue): the JAX package takes
-    # a device mesh here. The port runs on one device; a mesh raises in the
-    # estimators (ROADMAP item G1).
+    # Multi-device execution (no reference analogue): a `torch.distributed`
+    # device mesh (`parallel.make_mesh`). Rotations, positions,
+    # triangulation and bundle adjustment shard over it; every rank runs the
+    # estimator on the same inputs and ends with the same reconstruction.
+    # None = one device.
     mesh: object = None
 
 

@@ -12,8 +12,14 @@ with outlier removal and retriangulation.
 Steps 1-7 (`_estimate_poses`) are also what `tools/global_pose.py` runs and
 times stage by stage. Every rotation and position estimator type of the
 JAX package runs, and the maximal parallel-rigid subgraph
-(`extract_maximal_rigid_subgraph`). A device mesh raises
-`NotImplementedError` (ROADMAP item G1).
+(`extract_maximal_rigid_subgraph`).
+
+With `options.mesh` (every rank runs `estimate` on the same graph and
+container) the rotations, the positions, the triangulation and bundle
+adjustment shard over the mesh, as the JAX package passes its mesh to them
+(`:94`, `:153`, `:336`); the rest runs on every rank, and after the filters
+of steps 4-6 every rank takes rank 0's view graph and orientations, so that
+the sharded stages start from the same bits on every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..parallel.sharding import mesh_axis
 from ..ba.entry import bundle_adjust_partial_reconstruction, bundle_adjust_reconstruction
 from ..global_pose import filters
 from ..global_pose import position_estimator as pos_est
@@ -99,12 +106,11 @@ class GlobalReconstructionEstimator:
         """
         timer = timer or StageTimer(self.device)
         opt = self.options
-        if opt.mesh is not None:
-            raise NotImplementedError("a device mesh is not ported yet (ROADMAP item G1)")
         summary = ReconstructionEstimatorSummary()
         t_start = time.perf_counter()
         self.removed_edges = {}
         poses = self._estimate_poses(view_graph, recon, timer, removed=self.removed_edges)
+        self.estimated_poses = poses
         if poses is None:
             summary.message = "insufficient view pairs"
             logger.warning("global SfM aborted: insufficient view pairs")
@@ -214,6 +220,12 @@ class GlobalReconstructionEstimator:
                 for v in view_graph.remove_disconnected_view_pairs():
                     orientations.pop(v, None)
             edges["1DSfM"] = frozenset(view_graph.edges)
+
+        if opt.mesh is not None:
+            # Steps 4-6 ran on every rank: rank 0's graph and orientations.
+            state, orientations = mesh_axis(opt.mesh).broadcast_object(
+                (view_graph.__dict__, orientations))
+            view_graph.__dict__.update(state)
 
         # 7. Global positions (.cc:418-452).
         with stage("positions"):

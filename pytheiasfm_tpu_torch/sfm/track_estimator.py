@@ -29,6 +29,7 @@ from .. import default_device
 from ..models import camera as cam
 from ..ops import rotation as rotops
 from ..ops import triangulation as tri
+from ..parallel.sharding import local_shard, mesh_axis
 
 __all__ = [
     "TriangulationMethodType",
@@ -51,8 +52,9 @@ class TriangulationMethodType(enum.IntEnum):
 @dataclasses.dataclass(frozen=True)
 class TrackEstimatorOptions:
     """Parity: `theia::TrackEstimator::Options` (`estimate_track.h:57-101`).
-    `mesh`: the JAX package's device mesh; the port runs on one device and
-    raises for a mesh (ROADMAP item G1)."""
+    `mesh`: a device mesh (`parallel.make_mesh`): the track axis of the
+    batched triangulation shards over it, every rank triangulating its
+    block of the candidates; every rank calls with the same inputs."""
 
     max_acceptable_reprojection_error_pixels: float = 5.0
     min_triangulation_angle_degrees: float = 3.0
@@ -204,9 +206,6 @@ def estimate_tracks(
     is taken once). `device`: None means the CUDA card."""
     device = default_device(device)
     options = options or TrackEstimatorOptions()
-    if options.mesh is not None:
-        raise NotImplementedError("triangulation over a device mesh is not ported yet "
-                                  "(ROADMAP item G1)")
     summary = TrackEstimatorSummary(input_num_estimated_tracks=int(np.sum(recon.track_estimated)))
     ids = np.asarray(list(track_ids), np.int64)
     if len(ids) == 0 or recon.num_observations() == 0:
@@ -247,15 +246,22 @@ def estimate_tracks(
     from ..utils import counters
 
     counters.bump("triangulate_launch")
+    arrays = (track_ext, track_uv, track_focal, slot_mask)
+    comm = mesh_axis(options.mesh)
+    if comm is not None:
+        # This rank's block of the candidates; padded tracks are fully
+        # masked (the JAX package's `:284-300`).
+        arrays = tuple(local_shard(a, comm) for a in arrays)
     points4, success = triangulate_tracks(
-        *(torch.as_tensor(a, device=device) for a in (track_ext, track_uv, track_focal,
-                                                       slot_mask)),
+        *(torch.as_tensor(a, device=device) for a in arrays),
         float(np.asarray(options.max_acceptable_reprojection_error_pixels, dtype)),
         float(np.asarray(options.min_triangulation_angle_degrees, dtype)),
         method=int(options.triangulation_method),
         bundle_adjustment=options.bundle_adjustment,
         ba_iterations=options.ba_iterations,
     )
+    if comm is not None:  # every rank's block, in track order
+        points4, success = comm.gather(points4)[:T], comm.gather(success)[:T]
     points4 = points4.cpu().numpy().astype(recon.dtype)
     success = success.cpu().numpy()
     idx = candidates[success]

@@ -33,6 +33,7 @@ below the JAX kernel's and within 2e-3 of it (there the JAX kernel's path
 is chaotic under 1e-15 changes of its input; the port's is not).
 """
 
+import copy
 import dataclasses
 
 import jax.numpy as jnp
@@ -296,15 +297,24 @@ def test_view_and_track_entries():
 
 
 def test_what_is_not_ported_raises():
-    """A device mesh (ROADMAP item G1) raises; the dense Schur, the flat
-    kernel, the priors and the covariance run (`test_dispatch_matches_jax`,
-    `test_torch_dense_schur.py`, `test_torch_flat_ba.py`,
-    `test_torch_ba_priors_cov.py`)."""
+    """Nothing raises any more: a device mesh runs (a 1-rank mesh here, the
+    solve on one device's trajectory; 4 ranks in `test_torch_mesh_sfm.py`),
+    and so do the dense Schur, the flat kernel, the priors and the
+    covariance (`test_dispatch_matches_jax`, `test_torch_dense_schur.py`,
+    `test_torch_flat_ba.py`, `test_torch_ba_priors_cov.py`)."""
+    from torch_mesh_cases import one_rank_mesh
+
     tr = convert.reconstruction(_entry_scene(True))
     _, topt = _reference_default_options()
-    with pytest.raises(NotImplementedError, match="G1"):
-        tentry.bundle_adjust_reconstruction(dataclasses.replace(topt, mesh=object()), tr,
-                                            device="cpu")
+    on_mesh = copy.deepcopy(tr)
+    with one_rank_mesh() as mesh:
+        s_mesh = tentry.bundle_adjust_reconstruction(dataclasses.replace(topt, mesh=mesh),
+                                                     on_mesh, dtype=np.float64, device="cpu")
+    s_one = tentry.bundle_adjust_reconstruction(topt, tr, dtype=np.float64, device="cpu")
+    assert s_mesh.linear_solver == s_one.linear_solver == "iterative"
+    assert s_mesh.num_iterations == s_one.num_iterations
+    np.testing.assert_allclose(on_mesh.view_extrinsics, tr.view_extrinsics, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(on_mesh.points, tr.points, rtol=0, atol=1e-12)
     summary, covariances, vf = tentry.bundle_adjust_views_with_cov(topt, [1], tr,
                                                                     device="cpu")
     assert summary.success and covariances[1].shape == (6, 6) and vf > 0
@@ -358,7 +368,7 @@ def test_coarse_preconditioner_is_the_exact_coarse_schur(coarse_problem, monkeyp
         seen["prob"], seen["chol"] = self, factor(self, *a)
         return seen["chol"]
 
-    def keep_operator(S_mv, precond, g, options):
+    def keep_operator(S_mv, precond, g, options, comm=None):
         seen["S_mv"] = S_mv
         raise StopIteration
 

@@ -392,15 +392,21 @@ def test_contaminate_corrupts_its_fixed_share_the_same_on_both_packages():
 
 
 def test_unported_variants_raise():
-    """A device mesh is the one variant left unported (ROADMAP item G1);
+    """No variant is left unported: a device mesh runs (a 1-rank mesh here,
+    on one device's trajectory; 4 ranks in `test_torch_mesh_sfm.py`), and
     every estimator type runs (each held to the JAX package in
     `test_torch_global_pose_estimators.py`)."""
+    from torch_mesh_cases import one_rank_mesh
+
     g = convert.view_graph(scene("clean", V=12, T=600, neighborhood=3)[1])
-    with pytest.raises(NotImplementedError, match="G1"):
-        trot.estimate_rotations(g, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="G1"):
-        tpos.estimate_positions(g, {}, mesh=object(), device="cpu")
     orientations = trot.estimate_rotations(g, device="cpu")
+    positions = tpos.estimate_positions(g, orientations, device="cpu")
+    with one_rank_mesh() as mesh:
+        on_mesh = trot.estimate_rotations(g, mesh=mesh, device="cpu")
+        on_mesh_pos = tpos.estimate_positions(g, orientations, mesh=mesh, device="cpu")
+    for v in orientations:
+        np.testing.assert_allclose(on_mesh[v], orientations[v], rtol=0, atol=1e-12)
+        np.testing.assert_allclose(on_mesh_pos[v], positions[v], rtol=0, atol=1e-12)
     for kind in (1, 2, 3, 4):
         assert set(trot.estimate_rotations(g, kind, device="cpu")) == set(g.view_ids())
     for kind in (0, 1, 3, 4):

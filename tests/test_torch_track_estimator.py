@@ -13,6 +13,8 @@ relative to their norm (f32, the default dtype: both sides round the same
 inputs to f32, then differ in the order of sums).
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -141,6 +143,15 @@ def test_triangulate_tracks_arrays(method):
 
 
 def test_mesh_raises():
+    """A device mesh no longer raises: on a 1-rank mesh the triangulation is
+    one device's (4 ranks in `test_torch_mesh_sfm.py`)."""
+    from torch_mesh_cases import one_rank_mesh
+
     recon = convert.reconstruction(_scene())
-    with pytest.raises(NotImplementedError, match="G1"):
-        tte.estimate_all_tracks(recon, tte.TrackEstimatorOptions(mesh=object()), device="cpu")
+    on_mesh = copy.deepcopy(recon)
+    with one_rank_mesh() as mesh:
+        s_mesh = tte.estimate_all_tracks(on_mesh, tte.TrackEstimatorOptions(mesh=mesh),
+                                         device="cpu")
+    s_one = tte.estimate_all_tracks(recon, tte.TrackEstimatorOptions(), device="cpu")
+    assert s_mesh.estimated_tracks == s_one.estimated_tracks
+    np.testing.assert_array_equal(on_mesh.points, recon.points)

@@ -110,9 +110,9 @@ class Scene:
         seen = {}
         pcg = tis._pcg
 
-        def keep(S_mv, precond, g, options):
+        def keep(S_mv, precond, g, options, comm=None):
             seen["g"] = g[0]
-            return pcg(S_mv, precond, g, options)
+            return pcg(S_mv, precond, g, options, comm)
 
         def inv_ex(A, **kw):
             seen["Mv"] = A
