@@ -36,3 +36,8 @@ def default_device(device=None) -> _torch.device:
             )
         return _torch.device("cuda")
     return _torch.device(device)
+
+
+# The JAX package's top level imports these two subpackages; after
+# `default_device`, which their modules import from here.
+from . import models, ops  # noqa: E402,F401

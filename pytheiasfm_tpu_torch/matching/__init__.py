@@ -25,3 +25,4 @@ from .database import (  # noqa: F401
     InMemoryFeaturesAndMatchesDatabase,
 )
 from .fisher_vector import FisherVectorExtractor  # noqa: F401
+from .guided_epipolar import GuidedEpipolarMatcher, guided_epipolar_match  # noqa: F401

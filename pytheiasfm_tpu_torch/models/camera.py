@@ -24,9 +24,15 @@ __all__ = [
     "make_extrinsics",
     "position",
     "orientation",
+    "rotation_matrix",
     "project_point",
     "project_point_homogeneous",
+    "pixel_to_unit_depth_ray",
+    "pixel_to_normalized",
     "pixel_to_normalized_batch",
+    "compose_projection_matrix",
+    "decompose_projection_matrix",
+    "camera_from_projection_matrix",
 ]
 
 POSITION = 0
@@ -45,6 +51,11 @@ def position(extrinsics: torch.Tensor) -> torch.Tensor:
 
 def orientation(extrinsics: torch.Tensor) -> torch.Tensor:
     return extrinsics[..., ORIENTATION : ORIENTATION + 3]
+
+
+def rotation_matrix(extrinsics: torch.Tensor) -> torch.Tensor:
+    """World->camera rotation matrix [.., 3, 3]."""
+    return rot.angle_axis_to_rotation_matrix(orientation(extrinsics))
 
 
 def project_point_homogeneous(extrinsics, intrinsics, point4, model):
@@ -72,3 +83,43 @@ def pixel_to_normalized_batch(intrinsics, pixels, model):
     """[N, 2] pixels of one intrinsics group -> [N, 3] normalized
     camera-frame rays (intrinsics removed)."""
     return intr.pixel_to_camera(intrinsics, pixels, model)
+
+
+def pixel_to_normalized(intrinsics, pixel, model):
+    """Pixel -> normalized camera-frame ray (intrinsics removed)."""
+    return intr.pixel_to_camera(intrinsics, pixel, model)
+
+
+def pixel_to_unit_depth_ray(extrinsics, intrinsics, pixel, model):
+    """Pixel -> world-frame ray direction with unit depth along the optical
+    axis. Parity: `theia::Camera::PixelToUnitDepthRay` (`camera.h:147`)."""
+    ray_cam = intr.pixel_to_camera(intrinsics, pixel, model)
+    # Camera to world: rotate by R^T, the negated angle-axis.
+    return rot.angle_axis_rotate_point(-orientation(extrinsics), ray_cam)
+
+
+def compose_projection_matrix(extrinsics, intrinsics_f=None):
+    """[R | -R c] as a [.., 3, 4] matrix (calibrated projection, K = I).
+    `intrinsics_f` is unused, as in the JAX function. Parity:
+    `theia::ComposeProjectionMatrix` (`camera/projection_matrix_utils.h`)."""
+    R = rotation_matrix(extrinsics)
+    t = -(R @ position(extrinsics)[..., None])
+    return torch.cat([R, t], dim=-1)
+
+
+def decompose_projection_matrix(P: torch.Tensor):
+    """[.., 3, 4] calibrated projection matrix -> (angle_axis, position).
+
+    Parity: `theia::DecomposeProjectionMatrix` for K = I: the left 3x3
+    block projected to SO(3), c = -R^T t."""
+    R = rot.project_to_so3(P[..., :3])
+    t = P[..., 3]
+    c = -(R.transpose(-1, -2) @ t[..., None])[..., 0]
+    return rot.rotation_matrix_to_angle_axis(R), c
+
+
+def camera_from_projection_matrix(P: torch.Tensor) -> torch.Tensor:
+    """[.., 3, 4] -> [.., 6] extrinsics. Parity:
+    `theia::Camera::InitializeFromProjectionMatrix` (`camera.h:85`)."""
+    aa, c = decompose_projection_matrix(P)
+    return make_extrinsics(c, aa)

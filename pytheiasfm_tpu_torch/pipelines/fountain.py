@@ -311,6 +311,7 @@ def evaluate(
         mean_mm=float(np.mean(err_mm)),
         max_mm=float(np.max(err_mm)),
         cameras=n_est,
+        gt_cameras=gt.num_views(),
         edges=graph.num_edges(),
         tracks_used=recon.num_tracks(),
         t_verify_s=t_verify,

@@ -24,7 +24,15 @@ from ..global_pose import rotation_estimator as rot_est
 from ..ops.rotation_np import angle_axis_to_rotation_matrix_np
 from ..utils.log import logger
 from .estimator_options import ReconstructionEstimatorSummary
-from .incremental_estimator import _GrowingEstimator, kMinNumInitialTracks
+# The view ranking (`_GrowingEstimator._find_views_to_localize`) uses
+# kMinNumObserved3dPoints and kNumPyramidLevels, the values the JAX
+# module sets for its own ranking (`hybrid_reconstruction_estimator.cc`).
+from .incremental_estimator import (  # noqa: F401
+    _GrowingEstimator,
+    kMinNumInitialTracks,
+    kMinNumObserved3dPoints,
+    kNumPyramidLevels,
+)
 from .localize import localize_view_to_reconstruction
 from .reconstruction_estimator_utils import (
     num_estimated_tracks,

@@ -28,6 +28,7 @@ __all__ = [
     "estimate_two_view_info",
     "estimate_two_view_info_batch",
     "estimate_uncalibrated_two_view_info_batch",
+    "make_batched_verifier",
     "normalize_features_by_priors",
     "compute_resolution_scaled_threshold",
 ]
@@ -153,43 +154,78 @@ def _visibility(info, idx, points1, points2, prior1, prior2):
     return info
 
 
+def _stage1(estimate, params, quality, generator, points1, points2, mask, thresh,
+            num_data=None):
+    """`estimate` over a block of pairs in chunks of `_pairs_per_chunk`
+    pairs, drawing from `generator` chunk by chunk. Returns the rotation
+    angle-axis [P, 3], position [P, 3], inliers [P, N] and num_inliers [P],
+    with the focal lengths [P] of both views for an uncalibrated estimate
+    (`num_data` given)."""
+    chunk = _pairs_per_chunk(params.max_iterations)
+    parts = []
+    for s0 in range(0, len(points1), chunk):
+        sl = slice(s0, min(s0 + chunk, len(points1)))
+        model, summary = estimate(
+            generator, points1[sl], points2[sl], params, mask=mask[sl], quality=quality,
+            error_thresh=thresh[sl], num_data=None if num_data is None else num_data[sl],
+        )
+        row = [rotops.rotation_matrix_to_angle_axis(model.rotation), model.position,
+               summary.inliers, summary.num_inliers]
+        if num_data is not None:
+            row += [model.focal_length1, model.focal_length2]
+        parts.append(row)
+    return [torch.cat(p) for p in zip(*parts)]
+
+
+def make_batched_verifier(params: engine.RansacParameters, quality: str = "mle"):
+    """Build a batched calibrated verifier over P pairs.
+
+    `run(generator, points1, points2, mask, thresh)` takes normalized
+    coordinates [P, N, 2], mask [P, N] and squared Sampson thresholds [P]
+    and returns per pair (rotation angle-axis [P, 3], position [P, 3],
+    inliers [P, N], num_inliers [P]) on the inputs' device: the five-point
+    relative pose under RANSAC, in chunks of `_pairs_per_chunk` pairs, with
+    samples from `generator` (on the inputs' device). Stage 1 of
+    `estimate_two_view_info_batch` is this function.
+    """
+
+    def run(generator, points1, points2, mask, thresh):
+        if not len(points1):
+            empty = points1.new_zeros((0, 3))
+            return empty, empty, mask.bool(), torch.zeros(0, dtype=torch.int64, device=mask.device)
+        return tuple(_stage1(estimators.estimate_relative_pose, params, quality, generator,
+                             points1, points2, mask, thresh))
+
+    return run
+
+
 def _verify(calibrated: bool, params, generator, options, priors1, priors2, points1, points2,
             masks, min_num_inlier_matches, device):
     """Stage 1 over a block of pairs of one kind, in f32 and chunks of pairs
-    (`_pairs_per_chunk`): the five-point relative pose for calibrated pairs,
-    the uncalibrated relative pose (each pair over its true count) for the
-    others. Returns a list of (TwoViewInfo | None, inlier_indices)."""
+    (`_pairs_per_chunk`): the five-point relative pose for calibrated pairs
+    (`make_batched_verifier`), the uncalibrated relative pose (each pair
+    over its true count) for the others. Returns a list of (TwoViewInfo |
+    None, inlier_indices)."""
     n1, n2 = _normalized(priors1, priors2, points1, points2, calibrated)
     thresh = _thresholds(options, priors1, priors2, calibrated)
     masks = np.asarray(masks)
-    if calibrated:
-        estimate, num_data = estimators.estimate_relative_pose, None
-    else:
-        estimate, num_data = estimators.estimate_uncalibrated_relative_pose, masks.sum(-1)
+    quality = "mle" if options.use_mle else "inlier"
     f32 = torch.float32
-    parts = {"aa": [], "position": [], "inliers": [], "num": [], "f1": [], "f2": []}
-    chunk = _pairs_per_chunk(params.max_iterations)
-    for s0 in range(0, len(n1), chunk):
-        sl = slice(s0, min(s0 + chunk, len(n1)))
-        model, summary = estimate(
-            generator,
-            torch.as_tensor(n1[sl], dtype=f32, device=device),
-            torch.as_tensor(n2[sl], dtype=f32, device=device),
-            params,
-            mask=torch.as_tensor(masks[sl], device=device),
-            quality="mle" if options.use_mle else "inlier",
-            error_thresh=torch.as_tensor(thresh[sl], dtype=f32, device=device),
-            num_data=None if num_data is None else torch.as_tensor(num_data[sl], device=device),
-        )
-        parts["aa"].append(rotops.rotation_matrix_to_angle_axis(model.rotation))
-        parts["position"].append(model.position)
-        parts["inliers"].append(summary.inliers)
-        parts["num"].append(summary.num_inliers)
-        if not calibrated:
-            parts["f1"].append(model.focal_length1)
-            parts["f2"].append(model.focal_length2)
+    inputs = (
+        torch.as_tensor(n1, dtype=f32, device=device),
+        torch.as_tensor(n2, dtype=f32, device=device),
+        torch.as_tensor(masks, device=device),
+        torch.as_tensor(thresh, dtype=f32, device=device),
+    )
+    if calibrated:
+        verified = make_batched_verifier(params, quality)(generator, *inputs)
+    else:
+        verified = _stage1(estimators.estimate_uncalibrated_relative_pose, params, quality,
+                           generator, *inputs,
+                           num_data=torch.as_tensor(masks.sum(-1), device=device))
+    parts = dict(zip(("aa", "position", "inliers", "num", "f1", "f2"), verified))
     # One host copy per result set.
-    host = {k: torch.cat(v).cpu().numpy() for k, v in parts.items() if v}
+    host = {k: v.cpu().numpy() for k, v in parts.items()}
 
     results = []
     for i, (p1, p2) in enumerate(zip(priors1, priors2)):

@@ -196,3 +196,84 @@ def test_umeyama_matches_jax(rng, weighted):
         np.asarray(jalign.sim3_transform_points(jnp.asarray(left), *want)),
         atol=1e-10,
     )
+
+
+def _near_pi(aa, tol=1e-6):
+    return np.abs(np.linalg.norm(aa, axis=-1) - np.pi) < tol
+
+
+def test_camera_utility_functions_match_jax(rng):
+    """The six camera utilities of `models/camera.py`, port against JAX in
+    f64 to 1e-12 on a batch of [8, 8] extrinsics: the rotation matrix, the
+    normalized and unit-depth rays of a PINHOLE_RADIAL_TANGENTIAL camera,
+    the projection matrix and its decomposition. Near a rotation of pi
+    either sign of the axis is right, so those angle-axes are compared as
+    matrices."""
+    aa = _rotations(rng).reshape(8, 8, 3)
+    pos = rng.normal(size=(8, 8, 3)) * 3.0
+    ext = np.concatenate([pos, aa], -1)
+    text, jext = _t(ext), jnp.asarray(ext)
+    np.testing.assert_allclose(tcam.rotation_matrix(text).numpy(),
+                               np.asarray(jcam.rotation_matrix(jext)), rtol=0, atol=1e-12)
+
+    model = M.PINHOLE_RADIAL_TANGENTIAL
+    params = np.asarray(_params(model, (0.01, 0.001, 0.0001, 0.001, 0.0005)))
+    pixels = rng.uniform(100, 900, (8, 8, 2))
+    np.testing.assert_allclose(
+        tcam.pixel_to_normalized(_t(params), _t(pixels), model).numpy(),
+        np.asarray(jcam.pixel_to_normalized(jnp.asarray(params), jnp.asarray(pixels), model)),
+        rtol=0, atol=1e-12)
+    np.testing.assert_allclose(
+        tcam.pixel_to_unit_depth_ray(text, _t(params), _t(pixels), model).numpy(),
+        np.asarray(jcam.pixel_to_unit_depth_ray(jext, jnp.asarray(params),
+                                                jnp.asarray(pixels), model)),
+        rtol=0, atol=1e-12)
+
+    P = tcam.compose_projection_matrix(text)
+    jP = np.array(jcam.compose_projection_matrix(jext))
+    assert P.shape == (8, 8, 3, 4)
+    np.testing.assert_allclose(P.numpy(), jP, rtol=0, atol=1e-12)
+    aa_t, c_t = tcam.decompose_projection_matrix(_t(jP))
+    aa_j, c_j = jcam.decompose_projection_matrix(jnp.asarray(jP))
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=0, atol=1e-12)
+    aa_t, aa_j = aa_t.numpy(), np.asarray(aa_j)
+    far = ~_near_pi(aa_j)
+    np.testing.assert_allclose(aa_t[far], aa_j[far], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(trnp.angle_axis_to_rotation_matrix_np(aa_t[~far]),
+                               jrnp.angle_axis_to_rotation_matrix_np(aa_j[~far]),
+                               rtol=0, atol=1e-12)
+    ext_t = tcam.camera_from_projection_matrix(_t(jP)).numpy()
+    ext_j = np.asarray(jcam.camera_from_projection_matrix(jnp.asarray(jP)))
+    assert ext_t.shape == (8, 8, 6)
+    np.testing.assert_allclose(ext_t[..., :3], ext_j[..., :3], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(ext_t[far][:, 3:], ext_j[far][:, 3:], rtol=0, atol=1e-12)
+
+
+def test_pixel_to_unit_depth_ray_roundtrip():
+    """`tests/test_camera_models.py`'s round trip on the port: a point at
+    depth 4 along the ray of a pixel projects back to it."""
+    rng = np.random.default_rng(5)
+    pos = _t(rng.normal(size=(3,)))
+    aa = _t(0.3 * rng.normal(size=(3,)))
+    ext = tcam.make_extrinsics(pos, aa)
+    params = _t(_params(M.PINHOLE, (0.01, 0.001)))
+    point = pos + tcam.pixel_to_unit_depth_ray(
+        ext, params, _t([700.0, 500.0]), M.PINHOLE) * 4.0
+    depth, pixel = tcam.project_point(ext, params, point, M.PINHOLE)
+    np.testing.assert_allclose(float(depth), 4.0, atol=1e-8)
+    np.testing.assert_allclose(pixel.numpy(), [700.0, 500.0], atol=1e-6)
+
+
+def test_projection_matrix_roundtrip():
+    """`tests/test_camera_models.py`'s round trip on the port, and in f32
+    to 1e-5."""
+    rng = np.random.default_rng(11)
+    pos = rng.normal(size=(6, 3))
+    aa = 0.5 * rng.normal(size=(6, 3))
+    ext = tcam.make_extrinsics(_t(pos), _t(aa))
+    back = tcam.camera_from_projection_matrix(tcam.compose_projection_matrix(ext))
+    np.testing.assert_allclose(back.numpy(), ext.numpy(), atol=1e-9)
+    ext32 = ext.float()
+    back32 = tcam.camera_from_projection_matrix(tcam.compose_projection_matrix(ext32))
+    assert back32.dtype == torch.float32
+    np.testing.assert_allclose(back32.numpy(), ext.numpy(), atol=1e-5)

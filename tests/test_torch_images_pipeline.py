@@ -165,6 +165,35 @@ def test_chunked_jax_run_is_the_same(scene, runs, monkeypatch):
     np.testing.assert_array_equal(models[0].view_extrinsics, want_models[0].view_extrinsics)
 
 
+def _full_size_jax_run(tmp_path, monkeypatch, ransac_key, label, **kwargs):
+    """The JAX package's pipeline on the full-width scene with the matcher's
+    RANSAC key `ransac_key`; prints its constants. Returns its stats."""
+    import jax
+
+    key = jax.random.PRNGKey
+    monkeypatch.setattr(jax.random, "PRNGKey", lambda seed: key(seed + ransac_key))
+    t0 = time.perf_counter()
+    images, extrinsics = image_scene.render()
+    t_render = time.perf_counter() - t0
+    paths = image_scene.write_views(tmp_path, images)
+    t0 = time.perf_counter()
+    models, stats = jax_run_chunked(paths, monkeypatch, **kwargs)
+    t_jax = time.perf_counter() - t0
+    views, rot, pos = images_sfm.accuracy(models, extrinsics)
+    keypoints = stats["features_per_image"]  # under the 2048 cut: every keypoint
+    print(f"\n[{label}] scene sha256 {image_scene.images_sha256(images)} (rendered in "
+          f"{t_render:.1f} s); SIFT features a view: min {min(keypoints)}, max "
+          f"{max(keypoints)}")
+    print(f"[{label}] JAX CPU, RANSAC key {ransac_key} ({t_jax:.1f} s): t_extract_s "
+          f"{stats['t_extract_s']:.1f}, t_match_verify_s {stats['t_match_verify_s']:.1f}, "
+          f"t_reconstruct_s {stats['t_reconstruct_s']:.1f}; verified pairs "
+          f"{stats['verified_pairs']}, models {stats['models']}, views estimated "
+          f"{stats['views_estimated']}, tracks estimated {stats['tracks_estimated']}; largest "
+          f"model {views} views, median rotation error {rot!r} deg, median position error "
+          f"{pos!r} x the ring radius")
+    return stats
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("ransac_key", [0, 1])
 def test_full_size_jax_constants(tmp_path, monkeypatch, ransac_key):
@@ -175,28 +204,27 @@ def test_full_size_jax_constants(tmp_path, monkeypatch, ransac_key):
     `PRNGKey(1)` in place of its `PRNGKey(0)`: the same pipeline on another
     random stream, which measures how far the reference moves with the
     draws alone."""
-    import jax
-
-    key = jax.random.PRNGKey
-    monkeypatch.setattr(jax.random, "PRNGKey", lambda seed: key(seed + ransac_key))
-    t0 = time.perf_counter()
-    images, extrinsics = image_scene.render()
-    t_render = time.perf_counter() - t0
-    paths = image_scene.write_views(tmp_path, images)
-    t0 = time.perf_counter()
-    models, stats = jax_run_chunked(paths, monkeypatch)
-    t_jax = time.perf_counter() - t0
-    views, rot, pos = images_sfm.accuracy(models, extrinsics)
-    keypoints = stats["features_per_image"]  # under the 2048 cut: every keypoint
-    print(f"\n[images] scene sha256 {image_scene.images_sha256(images)} (rendered in "
-          f"{t_render:.1f} s); SIFT features a view: min {min(keypoints)}, max "
-          f"{max(keypoints)}")
-    print(f"[images] JAX CPU, RANSAC key {ransac_key} ({t_jax:.1f} s): t_extract_s "
-          f"{stats['t_extract_s']:.1f}, t_match_verify_s {stats['t_match_verify_s']:.1f}, "
-          f"t_reconstruct_s {stats['t_reconstruct_s']:.1f}; verified pairs "
-          f"{stats['verified_pairs']}, models {stats['models']}, views estimated "
-          f"{stats['views_estimated']}, tracks estimated {stats['tracks_estimated']}; largest "
-          f"model {views} views, median rotation error {rot!r} deg, median position error "
-          f"{pos!r} x the ring radius")
+    stats = _full_size_jax_run(tmp_path, monkeypatch, ransac_key, "images")
+    keypoints = stats["features_per_image"]
     assert min(keypoints) >= 1500
     assert stats["views_estimated"] >= 30
+
+
+# The images command's defaults (`tools/sfm_pipeline_images.py`, and the
+# port's `tools/sfm_pipeline_images.py`): Lowe's ratio 0.85 and 15 inliers,
+# where `run_images_pipeline` takes 0.8 and 30.
+COMMAND_DEFAULTS = dict(lowes_ratio=0.85, min_num_inlier_matches=15)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("ransac_key", [0, 1])
+def test_full_size_jax_constants_of_the_images_command(tmp_path, monkeypatch, ransac_key):
+    """As `test_full_size_jax_constants`, at the images command's defaults:
+    prints what `chip_smoke.py` phase 19(a) holds the card to.
+
+        JAX_PLATFORMS=cpu python -m pytest tests/test_torch_images_pipeline.py -m slow -s \\
+            -k images_command
+    """
+    stats = _full_size_jax_run(tmp_path, monkeypatch, ransac_key, "images command",
+                               **COMMAND_DEFAULTS)
+    assert stats["views_estimated"] >= 1

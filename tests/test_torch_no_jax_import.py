@@ -28,8 +28,8 @@ print(" ".join(names))
 # Modules added with the uncalibrated path and the RANSAC variants, with
 # localization and the incremental and hybrid estimators, with the rest of
 # global pose, with the remaining minimal solvers, with the I/O, the
-# fountain pipeline and the Sim(3) and MVS auxiliaries, and with the device
-# mesh.
+# fountain pipeline and the Sim(3) and MVS auxiliaries, with the device
+# mesh, and with the three user commands.
 _NEW_MODULES = ("math.sprt", "ops.p3p", "ops.pnp", "tools.localization", "ops.known_rotation",
                 "sfm.localize", "sfm.incremental_estimator", "sfm.hybrid_estimator",
                 "tools.incremental_sfm", "math.sdp", "math.qp",
@@ -40,7 +40,8 @@ _NEW_MODULES = ("math.sprt", "ops.p3p", "ops.pnp", "tools.localization", "ops.kn
                 "io.strecha", "io.onedsfm", "pipelines.fountain", "transforms.pose_graph_sim3",
                 "mvs", "mvs.view_selection", "sfm.colorize_reconstruction",
                 "matching.fisher_vector", "tools.file_scene", "parallel", "parallel.sharding",
-                "parallel.distributed", "parallel.multihost", "tools.mesh_sfm")
+                "parallel.distributed", "parallel.multihost", "tools.mesh_sfm",
+                "tools.sfm_pipeline_images", "tools.sfm_eval_fountain", "tools.mvs_pipeline")
 
 
 def test_every_port_module_imports_without_jax():

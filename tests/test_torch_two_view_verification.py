@@ -15,6 +15,8 @@ Bars:
     bars of `tests/test_two_view_verification.py`.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -196,3 +198,119 @@ def test_verify_matches_rejections_match_jax():
     assert uncalibrated(garbage) is None
     verified, info = uncalibrated([(i, i) for i in range(40)])
     assert verified == [(i, i) for i in range(40)] and info.num_verified_matches == 40
+
+
+def _clean_pairs(rng, num_pairs=4, n=48):
+    """Exact normalized correspondences of `num_pairs` random relative poses
+    (points 4-8 in front of both cameras), the last pair padded: its final
+    8 rows masked out. Returns (points1, points2, mask, rotations,
+    positions), the positions unit."""
+    p1 = np.zeros((num_pairs, n, 2))
+    p2 = np.zeros((num_pairs, n, 2))
+    aa = rng.normal(size=(num_pairs, 3)) * 0.15
+    c = rng.normal(size=(num_pairs, 3))
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    for i in range(num_pairs):
+        X = rng.uniform([-2, -2, 4], [2, 2, 8], size=(n, 3))
+        R = angle_axis_to_rotation_matrix_np(aa[i])
+        Xc = (X - c[i]) @ R.T
+        p1[i] = X[:, :2] / X[:, 2:3]
+        p2[i] = Xc[:, :2] / Xc[:, 2:3]
+    mask = np.ones((num_pairs, n), bool)
+    mask[-1, -8:] = False
+    return p1, p2, mask, aa, c
+
+
+VERIFIER_RECORD = Path(__file__).resolve().parent / "data" / "torch_two_view_verifier_jax.npz"
+VERIFIER_ITERATIONS = 64
+
+
+def _verifier_inputs():
+    p1, p2, mask, aa, c = _clean_pairs(np.random.default_rng(3))
+    return p1, p2, mask, np.full((len(p1),), 1e-6), aa, c
+
+
+def jax_verifier_outputs():
+    """The JAX package's `make_batched_verifier` on `_verifier_inputs` in
+    f32, `PRNGKey(0)` split over the pairs (about 25 s to trace here, so
+    recorded: `JAX_PLATFORMS=cpu python tests/torch_verifier_reference.py`)."""
+    p1, p2, mask, thresh, _, _ = _verifier_inputs()
+    f32 = np.float32
+    run = jtv.make_batched_verifier(jeng.RansacParameters(max_iterations=VERIFIER_ITERATIONS))
+    out = run(jax.random.split(jax.random.PRNGKey(0), len(p1)), jnp.asarray(p1, f32),
+              jnp.asarray(p2, f32), jnp.asarray(mask), jnp.asarray(thresh, f32))
+    return dict(zip(("aa", "position", "inliers", "num_inliers"), map(np.asarray, out)))
+
+
+def save_verifier_record(path=VERIFIER_RECORD):
+    np.savez_compressed(path, **jax_verifier_outputs())
+
+
+def test_batched_verifier_matches_jax_on_clean_pairs():
+    """`make_batched_verifier` against the JAX package's (recorded in
+    `tests/data/torch_two_view_verifier_jax.npz`) on exact pairs, in f32,
+    each package with its own draws: the same inlier sets (every unmasked
+    row), rotations and positions within 1e-5 of each other and of the
+    truth."""
+    p1, p2, mask, thresh, aa, c = _verifier_inputs()
+    with np.load(VERIFIER_RECORD) as z:
+        want = dict(z)
+    run = ttv.make_batched_verifier(teng.RansacParameters(max_iterations=VERIFIER_ITERATIONS))
+    out = run(torch.Generator().manual_seed(0), torch.as_tensor(p1, dtype=torch.float32),
+              torch.as_tensor(p2, dtype=torch.float32), torch.as_tensor(mask),
+              torch.as_tensor(thresh, dtype=torch.float32))
+    taa, tpos, tin, tnum = (t.numpy() for t in out)
+    assert [t.shape for t in out] == [(4, 3), (4, 3), (4, 48), (4,)]
+    assert out[0].dtype == torch.float32 and out[2].dtype == torch.bool
+    np.testing.assert_array_equal(tin, want["inliers"])
+    np.testing.assert_array_equal(tin, mask)
+    np.testing.assert_array_equal(tnum, want["num_inliers"])
+    np.testing.assert_allclose(taa, want["aa"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tpos, want["position"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(taa, aa, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tpos, c, rtol=0, atol=1e-5)
+
+
+@pytest.mark.slow
+def test_verifier_record_is_the_jax_package_s():
+    """The JAX verifier on the record's inputs gives the record: the same
+    inliers, the f32 models to 1e-6 (its rounding on another CPU)."""
+    with np.load(VERIFIER_RECORD) as z:
+        want = dict(z)
+    got = jax_verifier_outputs()
+    for k in ("inliers", "num_inliers"):
+        np.testing.assert_array_equal(got[k], want[k])
+    for k in ("aa", "position"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6)
+
+
+def test_batch_verification_is_the_batched_verifier(monkeypatch):
+    """`estimate_two_view_info_batch` runs stage 1 through
+    `make_batched_verifier`: from one generator seed both give the same
+    bits (rotation, position, inliers), in two chunks of pairs."""
+    monkeypatch.setattr(ttv, "_pairs_per_chunk", lambda max_iterations: 4)
+    rng = np.random.default_rng(4)
+    p1, p2, mask, _, _ = _clean_pairs(rng, num_pairs=6)
+    p1 += rng.normal(size=p1.shape) * 2e-4
+    f, pp = 800.0, (320.0, 240.0)
+    prior = CameraIntrinsicsPrior(focal_length=f, principal_point=pp, image_width=640,
+                                  image_height=480)
+    options = ttv.EstimateTwoViewInfoOptions(max_ransac_iterations=250)
+    pix1, pix2 = p1 * f + np.asarray(pp), p2 * f + np.asarray(pp)
+    infos = ttv.estimate_two_view_info_batch(
+        torch.Generator().manual_seed(7), options, [prior] * 6, [prior] * 6, pix1, pix2, mask,
+        device="cpu")
+    params = ttv._ransac_parameters(options)
+    n1, n2 = ttv._normalized([prior] * 6, [prior] * 6, pix1, pix2, True)
+    thresh = ttv._thresholds(options, [prior] * 6, [prior] * 6, True)
+    f32 = torch.float32
+    aa, pos, inl, num = ttv.make_batched_verifier(params)(
+        torch.Generator().manual_seed(7), torch.as_tensor(n1, dtype=f32),
+        torch.as_tensor(n2, dtype=f32), torch.as_tensor(mask), torch.as_tensor(thresh, dtype=f32))
+    for i, (info, idx) in enumerate(infos):
+        assert info is not None
+        np.testing.assert_array_equal(info.rotation_2, aa[i].numpy().astype(np.float64))
+        np.testing.assert_array_equal(info.position_2, pos[i].numpy().astype(np.float64))
+        np.testing.assert_array_equal(idx, np.flatnonzero(inl[i].numpy()))
+        assert info.num_verified_matches == int(num[i])
+
